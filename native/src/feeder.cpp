@@ -2,7 +2,7 @@
 //
 // The reference's per-line path runs through ROS message passing; here a
 // lock-guarded ring of preallocated slots carries scan lines from the
-// device/replay producer thread to the TPU feed (the PP-analog
+// device/replay producer thread to the device feed (the PP-analog
 // double-buffered scan queue of SURVEY.md §2.3). Preallocated slots, no
 // per-line malloc; full-ring pushes drop the line and count it (matching
 // the reference's queue_size=1 subscriber semantics of dropping stale

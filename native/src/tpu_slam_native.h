@@ -5,7 +5,7 @@
  * (m3d/sick_minimal_driver/src/lms_mini_lib.{hpp,cpp}, lms_poller.cpp), the
  * rotating-unit motor protocol (m3d/m3dunit_base/src/driverLib.{hpp,cpp}),
  * and the per-beam parse hot loops. This library provides the same runtime
- * capabilities for the TPU stack, behind a plain C ABI consumed from Python
+ * capabilities for the JAX stack, behind a plain C ABI consumed from Python
  * via ctypes (no pybind11 in the image):
  *
  *   - ts_cola_*:  CoLa-A framing + LMDscandata telegram parsing
@@ -13,7 +13,7 @@
  *   - ts_m3d_*:   rotating-unit motor controller client (sp/gp parameter
  *                 protocol, speed/position/angle/encoder semantics)
  *   - ts_feeder_*: double-buffered scan-line ring feeder (the host-side
- *                 data loader that keeps the TPU fed without Python in the
+ *                 data loader that keeps the device fed without Python in the
  *                 per-line path)
  */
 

@@ -2,7 +2,7 @@
 //
 // The reference consumed the external velodyne_driver/velodyne_pointcloud
 // C++ nodelets (m3d/m3dunit_base/launch/universal_velodyne.launch:59-81);
-// this is the equivalent native hot path for the TPU stack: one pass over
+// this is the equivalent native hot path for the JAX stack: one pass over
 // a batch of 1206-byte packets producing gated points + metadata, with the
 // per-beam trig done against precomputed elevation tables. Bit-compatible
 // with the pure-Python reference decoder (tpu_slam/ingest/velodyne.py),

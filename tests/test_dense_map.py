@@ -4,7 +4,7 @@ The DenseMomentGrid must agree with the sparse VoxelMap pipeline it
 replaces at odometry rate: same per-cell moments as scan_to_voxel_stats,
 same coarse moments as coarsen_map, and the SAME NDT plane tensor as
 ndt_field's sparse->dense build — then the dense odometry engine must
-track a synthetic trajectory end to end (Pallas kernel in interpret mode).
+track a synthetic trajectory end to end.
 """
 
 import dataclasses
@@ -131,6 +131,7 @@ def test_grid_coarsen_matches_coarsen_map():
 
 
 def test_grid_field_matches_sparse_field_planes():
+    """grid_ndt_field rows == ndt_field rows for the same window."""
     from tpu_slam.registration.ndt import NDTParams, ndt_field
 
     cloud = _scene_cloud()
@@ -144,12 +145,12 @@ def test_grid_field_matches_sparse_field_planes():
     center = (jnp.asarray(SPEC.origin, jnp.float32)
               + (grid.origin_cell.astype(jnp.float32)
                  + jnp.asarray([d / 2 for d in DIMS])) * SPEC.leaf)
-    params = NDTParams(window_dims=DIMS, terms_impl="pallas_interpret")
+    params = NDTParams(window_dims=DIMS)
     f_sparse = ndt_field(vmap, SPEC, params, center=center)
     assert tuple(np.asarray(f_sparse.origin_cell)) == tuple(
         np.asarray(grid.origin_cell))
-    np.testing.assert_allclose(np.asarray(f_dense.planes),
-                               np.asarray(f_sparse.planes),
+    np.testing.assert_allclose(np.asarray(f_dense.rows),
+                               np.asarray(f_sparse.rows),
                                rtol=2e-4, atol=2e-4)
 
 
@@ -213,8 +214,7 @@ def test_dense_odometry_tracks_trajectory():
         scan_capacity=8192, downsample_leaf=0.2,
         map_leaf=0.4, map_half_extent=16.0, map_capacity=16384,
         ndt=NDTParams(max_iterations=10, coarse_iterations=2,
-                      window_dims=(48, 48, 16),
-                      terms_impl="pallas_interpret"),
+                      window_dims=(48, 48, 16)),
         pyramid_factor=2)
     odo = DenseLidarOdometry(cfg)
     poses, log = odo.run(clouds, init_pose=jnp.asarray(gt[0], jnp.float32))

@@ -219,8 +219,7 @@ def test_dynamic_object_evicted_from_dense_engine():
     cfg = OdometryConfig(
         scan_capacity=4096, downsample_leaf=0.25, map_leaf=0.4,
         map_half_extent=8.0, map_capacity=16384,
-        ndt=NDTParams(max_iterations=15, window_dims=(32, 32, 16),
-                      terms_impl="pallas_interpret"),
+        ndt=NDTParams(max_iterations=15, window_dims=(32, 32, 16)),
         pyramid_factor=2,
         use_occupancy=True, occupancy_steps=64, occupancy_max_range=15.0,
         occupancy_evict_below=-1.0, min_insert_fraction=0.0)

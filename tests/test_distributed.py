@@ -62,7 +62,7 @@ def test_sharded_pairwise_icp_matches_single():
         tp[k, :400], tm[k, :400] = tgt, True
         sp[k, :400], sm[k, :400] = src, True
 
-    params = ICPParams(max_iterations=30, max_corr_dist=2.0, nn_impl="xla")
+    params = ICPParams(max_iterations=30, max_corr_dist=2.0)
     res = sharded_pairwise_icp(mesh, jnp.asarray(sp), jnp.asarray(sm),
                                jnp.asarray(tp), jnp.asarray(tm),
                                jnp.broadcast_to(jnp.eye(4), (B, 4, 4)),
@@ -167,7 +167,7 @@ def _ndt_parity_case(half_extent, window_bits, n_azimuth=360):
 
     xi_true = jnp.array([0.2, -0.1, 0.08, 0.02, -0.03, 0.05], jnp.float32)
     src = cloud.transform(se3.inverse(se3.exp(xi_true)))
-    params = NDTParams(max_iterations=25, pack_any_backend=True,
+    params = NDTParams(max_iterations=25, pack_budget_mb=512,
                        window_bits=window_bits)
     return mesh, spec, single, smap, src, params, xi_true
 
@@ -219,11 +219,11 @@ def test_sharded_windowed_ndt_subgrid_window():
 
 @pytest.mark.slow
 def test_sharded_ndt_fallback_path_still_works():
-    """With packing off (pack_any_backend=False on CPU) the pre-window
-    eigh fallback still recovers the transform."""
+    """With packing off (pack_budget_mb=0) the pre-window eigh fallback
+    still recovers the transform."""
     mesh, spec, single, smap, src, params, xi_true = _ndt_parity_case(
         half_extent=16.0, window_bits=6)
-    params = NDTParams(max_iterations=30, pack_any_backend=False)
+    params = NDTParams(max_iterations=30, pack_budget_mb=0)
     res = ndt_register_sharded(mesh, src, smap, spec, params=params)
     err = se3.log(se3.compose(se3.inverse(se3.exp(xi_true)), res.T))
     assert float(jnp.linalg.norm(err[:3])) < 0.08
@@ -339,19 +339,18 @@ def test_heartbeat_recovery_path(tmp_path):
 
 @pytest.mark.slow
 def test_sharded_pallas_tier_matches_single_chip_kernel():
-    """Pallas raster tier (interpret): sharded == single-chip kernel path.
+    """Window-rows tier: sharded == single-device frozen-bin path.
 
-    terms_impl='pallas_interpret' flips both sides onto the raster-terms
-    kernel; the sharded side runs it per halo-extended chunk with
-    psum-combined H/b/cost (round-3 verdict item 4).
+    window_dims puts both sides on the frozen-bin terms pass; the sharded
+    side runs it per halo-extended chunk with psum-combined H/b/cost.
     """
     mesh, spec, single, smap, src, params, xi_true = _ndt_parity_case(
         half_extent=16.0, window_bits=6)
     import dataclasses as _dc
-    params = _dc.replace(params, terms_impl="pallas_interpret",
+    params = _dc.replace(params, window_dims=(64, 64, 64), pack_budget_mb=0,
                          max_iterations=12, coarse_iterations=2)
     field = ndt_field(single, spec, params)
-    assert field.planes is not None        # single-chip kernel tier active
+    assert field.rows is not None          # single-device window tier
     res1 = ndt_register(src, field, spec, params=params)
     res8 = ndt_register_sharded(mesh, src, smap, spec, params=params)
     np.testing.assert_allclose(np.asarray(res8.T), np.asarray(res1.T),
@@ -392,9 +391,14 @@ def test_sharded_dense_engine_matches_single_chip():
         gt.append(np.asarray(T, np.float32))
 
     dims = (64, 64, 16)
+    # tolerance below any reachable step: both sides run the full
+    # iteration budget. At tolerance ~ the final step size, the float32
+    # convergence test (|xi| <= tol) flips on summation-order rounding
+    # (per-device partial sums vs one sum), and one extra accepted step
+    # moves the pose by ~tol.
     params = NDTParams(max_iterations=6, coarse_iterations=0,
                        min_voxel_count=3.0, window_dims=dims,
-                       terms_impl="pallas_interpret", rebin_iters=3)
+                       rebin_iters=3, tolerance=1e-6)
     cfg = OdometryConfig(scan_capacity=4096, downsample_leaf=0.25,
                          map_leaf=0.4, map_half_extent=16.0,
                          insert_downsampled=True, deskew=False,

@@ -154,8 +154,7 @@ def test_verify_candidates_accepts_true_overlap():
 
 def ICPParams_for_test():
     from tpu_slam.registration.icp import ICPParams
-    return ICPParams(max_iterations=30, max_corr_dist=1.5, huber_delta=0.3,
-                     nn_impl="xla")
+    return ICPParams(max_iterations=30, max_corr_dist=1.5, huber_delta=0.3)
 
 
 def test_robust_kernel_rejects_bad_loop():

@@ -29,7 +29,7 @@ def test_icp_recovers_known_transform():
 
     source = PointCloud.from_points(src, capacity=768)
     target = PointCloud.from_points(jnp.asarray(tgt), capacity=768)
-    params = ICPParams(max_iterations=50, max_corr_dist=2.0, nn_impl="xla")
+    params = ICPParams(max_iterations=50, max_corr_dist=2.0)
     res = icp(source, target, params=params)
 
     err_xi = se3.log(se3.compose(se3.inverse(T_true), res.T))
@@ -42,7 +42,7 @@ def test_icp_identity_on_same_cloud():
     rng = np.random.default_rng(1)
     pts = make_scene(rng, 300)
     cloud = PointCloud.from_points(jnp.asarray(pts), capacity=384)
-    res = icp(cloud, cloud, params=ICPParams(max_iterations=10, nn_impl="xla"))
+    res = icp(cloud, cloud, params=ICPParams(max_iterations=10))
     np.testing.assert_allclose(np.asarray(res.T), np.eye(4), atol=1e-4)
     assert bool(res.converged)
 
@@ -64,7 +64,7 @@ def test_icp_point_to_plane():
     source = PointCloud.from_points(src)
     target = PointCloud.from_points(jnp.asarray(tgt))
     params = ICPParams(max_iterations=30, max_corr_dist=2.0,
-                       point_to_plane=True, nn_impl="xla")
+                       point_to_plane=True)
     res = icp(source, target, params=params,
               target_normals=jnp.asarray(normals))
     err_xi = se3.log(se3.compose(se3.inverse(T_true), res.T))
@@ -84,7 +84,7 @@ def test_icp_robust_to_outliers():
     source = PointCloud.from_points(jnp.asarray(src))
     target = PointCloud.from_points(jnp.asarray(tgt))
     params = ICPParams(max_iterations=40, max_corr_dist=1.0,
-                       huber_delta=0.2, nn_impl="xla")
+                       huber_delta=0.2)
     res = icp(source, target, params=params)
     err_xi = se3.log(se3.compose(se3.inverse(T_true), res.T))
     assert float(jnp.linalg.norm(err_xi)) < 0.05

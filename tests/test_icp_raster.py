@@ -1,4 +1,5 @@
-"""Fused raster pair-ICP: kernel == XLA reference; solve parity with icp()."""
+"""Frozen-bin pair-ICP: terms pass == float64 reference; solve parity
+with icp()."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -6,9 +7,9 @@ import numpy as np
 from tpu_slam.core import se3
 from tpu_slam.core.pointcloud import PointCloud
 from tpu_slam.ingest import synthetic as syn
-from tpu_slam.kernels.icp_terms import (icp_terms_raster,
-                                        icp_terms_raster_reference)
-from tpu_slam.kernels.ndt_terms import build_terms_raster
+from tpu_slam.kernels.icp_terms import (icp_terms, icp_terms_reference,
+                                        target_table)
+from tpu_slam.kernels.ndt_terms import bin_points
 from tpu_slam.registration.icp import ICPParams, icp, icp_raster
 import pytest
 
@@ -34,17 +35,20 @@ def test_icp_terms_kernel_matches_reference():
     src = tgt.transform(se3.inverse(se3.exp(xi)))
     origin = jnp.asarray([-4.0, -4.0, -2.0], jnp.float32)
     eye = jnp.eye(4, dtype=jnp.float32)
-    tr, _ = build_terms_raster(tgt.points, tgt.mask, eye, origin, LEAF,
-                               DIMS, 8)
-    sr, _ = build_terms_raster(src.points, src.mask, eye, origin, LEAF,
-                               DIMS, 8)
+    table = target_table(tgt.points, tgt.mask, origin, LEAF, DIMS, 8)
+    t_cells, t_keep = bin_points(tgt.points, tgt.mask, eye, origin, LEAF,
+                                 DIMS, 8)
+    cells, keep = bin_points(src.points, src.mask, eye, origin, LEAF,
+                             DIMS, 8)
     T = se3.exp(0.5 * xi)
-    got = icp_terms_raster(sr, tr, T, 1.0, 0.4, DIMS, 8, 8, interpret=True)
-    want = icp_terms_raster_reference(sr, tr, T, 1.0, 0.4, DIMS, 8, 8)
+    got = icp_terms(src.points, cells, keep, table, T, 1.0, 0.4, DIMS)
+    want = icp_terms_reference(src.points, cells, keep, tgt.points, t_cells,
+                               t_keep, T, 1.0, 0.4)
     names = ["H", "b", "err", "nmatch", "wsum"]
     for g, w, name in zip(got, want, names):
         np.testing.assert_allclose(np.asarray(g), np.asarray(w),
                                    rtol=2e-4, atol=2e-3, err_msg=name)
+    assert int(got[3]) == want[3]
     assert float(got[3]) > 0.5 * float(jnp.sum(src.mask))
 
 
@@ -58,8 +62,7 @@ def test_icp_raster_recovers_transform_like_brute():
     res_b = icp(src, tgt, params=params)
     res_r = icp_raster(src, tgt, params=params, dims=DIMS, leaf=LEAF,
                        origin_world=jnp.asarray([-4.0, -4.0, -2.0],
-                                                jnp.float32),
-                       interpret=True)
+                                                jnp.float32))
     err_b = float(jnp.linalg.norm(se3.log(
         se3.compose(se3.inverse(se3.exp(xi)), res_b.T))))
     err_r = float(jnp.linalg.norm(se3.log(
@@ -79,13 +82,12 @@ def test_icp_raster_axis_perm_matches_unpermuted():
                        huber_delta=0.4)
     res_a = icp_raster(src, tgt, params=params, dims=DIMS, leaf=LEAF,
                        origin_world=jnp.asarray([-4.0, -4.0, -2.0],
-                                                jnp.float32),
-                       interpret=True)
+                                                jnp.float32))
     # permuted: world z on kernel x -> dims (8, 16, 16), origin (z, x, y)
     res_p = icp_raster(src, tgt, params=params, dims=(8, 16, 16), leaf=LEAF,
                        origin_world=jnp.asarray([-2.0, -4.0, -4.0],
                                                 jnp.float32),
-                       interpret=True, axis_perm=(2, 0, 1))
+                       axis_perm=(2, 0, 1))
     np.testing.assert_allclose(np.asarray(res_p.T), np.asarray(res_a.T),
                                atol=5e-3)
     err = float(jnp.linalg.norm(se3.log(

@@ -128,7 +128,7 @@ def test_nn_brute_matches_numpy():
     rng = np.random.default_rng(3)
     q, _ = make_cloud(rng, 100)
     t, _ = make_cloud(rng, 200)
-    idx, dist = nearest_neighbors(jnp.asarray(q), jnp.asarray(t), impl="xla")
+    idx, dist = nearest_neighbors(jnp.asarray(q), jnp.asarray(t))
     d2 = ((q[:, None, :] - t[None, :, :]) ** 2).sum(-1)
     ref_idx = d2.argmin(1)
     np.testing.assert_array_equal(np.asarray(idx), ref_idx)
@@ -140,7 +140,7 @@ def test_nn_brute_ignores_padding_targets():
     q = jnp.asarray(rng.normal(size=(10, 3)), dtype=jnp.float32)
     t_real = rng.normal(size=(5, 3)).astype(np.float32)
     tcloud = PointCloud.from_points(jnp.asarray(t_real), capacity=32)
-    idx, dist = nearest_neighbors(q, tcloud.points, impl="xla")
+    idx, dist = nearest_neighbors(q, tcloud.points)
     assert bool(jnp.all(idx < 5))
 
 
@@ -152,7 +152,7 @@ def test_nn_hash_matches_brute_within_leaf():
     skeys, scloud = sort_by_key(tcloud, spec)
     idx_h, dist_h = nearest_neighbors_hash(
         jnp.asarray(q), skeys, scloud.points, spec, k_per_cell=4)
-    idx_b, dist_b = nearest_neighbors(jnp.asarray(q), scloud.points, impl="xla")
+    idx_b, dist_b = nearest_neighbors(jnp.asarray(q), scloud.points)
     # wherever hash found a neighbor within one leaf, it must agree with brute
     close = np.asarray(dist_b) < spec.leaf
     assert close.mean() > 0.9
@@ -160,16 +160,16 @@ def test_nn_hash_matches_brute_within_leaf():
                                np.asarray(dist_b)[close], atol=1e-4)
 
 
-def test_nn_pallas_interpret_matches_xla():
-    from tpu_slam.kernels import nn_search
+@pytest.mark.parametrize("nq,nt,chunk", [(300, 700, 128), (1, 5, 512),
+                                         (513, 64, 512)])
+def test_nn_brute_matches_numpy_padded(nq, nt, chunk):
+    """Query counts that are not a chunk multiple, and padded targets."""
     rng = np.random.default_rng(6)
-    q, _ = make_cloud(rng, 300)
-    t, _ = make_cloud(rng, 700)
-    import jax
-    idx_x, dist_x = nearest_neighbors(jnp.asarray(q), jnp.asarray(t), impl="xla")
-    # On CPU the pallas kernel runs in interpret mode via force flag
-    from jax.experimental.pallas import tpu as pltpu
-    with pltpu.force_tpu_interpret_mode():
-        idx_p, dist_p = nn_search._nn_brute_pallas(jnp.asarray(q), jnp.asarray(t))
-    np.testing.assert_array_equal(np.asarray(idx_p), np.asarray(idx_x))
-    np.testing.assert_allclose(np.asarray(dist_p), np.asarray(dist_x), atol=1e-4)
+    q = rng.normal(size=(nq, 3)).astype(np.float32)
+    t_real = rng.normal(size=(nt, 3)).astype(np.float32)
+    tcloud = PointCloud.from_points(jnp.asarray(t_real), capacity=nt + 37)
+    idx, dist = nearest_neighbors(jnp.asarray(q), tcloud.points, chunk=chunk)
+    d = np.linalg.norm(q[:, None, :].astype(np.float64)
+                       - t_real[None, :, :], axis=2)
+    np.testing.assert_array_equal(np.asarray(idx), np.argmin(d, axis=1))
+    np.testing.assert_allclose(np.asarray(dist), d.min(axis=1), atol=1e-5)

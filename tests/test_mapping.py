@@ -143,13 +143,13 @@ def test_ndt_terms_nbr_rows_tiers_match_lookup_tier():
     base = NDTParams(pack_budget_mb=0)
     f0 = ndt_field(m, spec, base)
     assert f0.nbr_rows is None
-    p144 = NDTParams(pack_budget_mb=512, pack_any_backend=True)
+    p144 = NDTParams(pack_budget_mb=512)
     f144 = ndt_field(m, spec, p144)
     assert f144.nbr_rows is not None and f144.nbr_rows.shape[1] == 144
     # budget that fits (G,48) but not (G,144)
     g = 1 << (3 * spec.dim_bits)
     mb48 = (g * 48 * 4) // (1 << 20) + 1
-    p48 = NDTParams(pack_budget_mb=mb48, pack_any_backend=True)
+    p48 = NDTParams(pack_budget_mb=mb48)
     f48 = ndt_field(m, spec, p48)
     assert f48.nbr_rows is not None and f48.nbr_rows.shape[1] == 48
 
@@ -186,7 +186,7 @@ def test_ndt_field_windowed_matches_full_grid():
     big = VoxelGridSpec.centered(leaf=0.5, half_extent=100.0)
     m = insert_cloud(empty_map(16384), cloud, big, 0.0)
 
-    p = NDTParams(pack_budget_mb=512, pack_any_backend=True, window_bits=6)
+    p = NDTParams(pack_budget_mb=512, window_bits=6)
     center = jnp.asarray([0.0, 0.0, 1.5], jnp.float32)
     f_win = ndt_field(m, big, p, center=center)
     assert f_win.origin_cell is not None

@@ -1,30 +1,23 @@
-"""Pallas NDT terms kernel: raster build, kernel-vs-reference parity, and
-parity with registration.ndt._ndt_terms at the stage-start pose.
-
-The kernel runs in interpret mode here (CPU conftest backend); the real
-Mosaic compile is exercised on the chip by bench.py config 3.
-"""
+"""NDT terms pass: frozen-bin binning, point-major pass vs the float64
+reference, the owned-x matched count, parity with registration.ndt's
+_ndt_terms at the stage-start pose, and the integrated register path."""
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
-from tpu_slam.kernels.ndt_terms import (build_terms_raster, ndt_terms_raster,
-                                        ndt_terms_raster_reference,
-                                        raster_to_slots, rows_to_planes)
+from tpu_slam.kernels.ndt_terms import (bin_points, bin_points_reference,
+                                        ndt_terms, ndt_terms_reference)
 
-pytestmark = pytest.mark.slow
-
-DIMS = (8, 8, 16)          # Wy*Wz = 128 = one lane tile
+DIMS = (8, 8, 16)
 Q = 2
 LEAF = 0.5
 
 
-def _synthetic_field(seed=0, occupancy=0.7):
+def _synthetic_field(seed=0, occupancy=0.7, dims=DIMS):
     """Random rows16 over the window: mean near cell center, SPD Lambda."""
     rng = np.random.default_rng(seed)
-    wx, wy, wz = DIMS
+    wx, wy, wz = dims
     g = wx * wy * wz
     cell = np.stack(np.meshgrid(np.arange(wx), np.arange(wy), np.arange(wz),
                                 indexing="ij"), -1).reshape(g, 3)
@@ -42,9 +35,9 @@ def _synthetic_field(seed=0, occupancy=0.7):
     return jnp.asarray(rows)
 
 
-def _scan(n=200, seed=1):
+def _scan(n=200, seed=1, dims=DIMS):
     rng = np.random.default_rng(seed)
-    wx, wy, wz = DIMS
+    wx, wy, wz = dims
     pts = rng.uniform([0.7, 0.7, 0.7],
                       [wx * LEAF - 0.7, wy * LEAF - 0.7, wz * LEAF - 0.7],
                       (n, 3)).astype(np.float32)
@@ -53,72 +46,93 @@ def _scan(n=200, seed=1):
     return jnp.asarray(pts), jnp.asarray(mask)
 
 
-def test_raster_build_places_points():
-    pts, mask = _scan(64)
-    T0 = jnp.eye(4)
-    raster, dropped = build_terms_raster(
-        pts, mask, T0, jnp.zeros(3), LEAF, DIMS, Q)
-    wx, wy, wz = DIMS
-    assert raster.shape == (wx, 4 * Q, 8, wy * wz // 8)
-    slots = np.asarray(raster_to_slots(raster, DIMS, Q))
-    # every kept point appears exactly once with w=1
-    n_placed = int(slots[:, 3].sum())
-    assert n_placed + int(dropped) == int(mask.sum())
-    # round-trip: collect placed coordinates, compare as sets
-    placed = slots[slots[:, 3] > 0.5][:, :3]
-    orig = np.asarray(pts)[np.asarray(mask)]
-    # with Q=2 some cells may overflow; every placed point must be an
-    # original point
-    d = np.linalg.norm(placed[:, None, :] - orig[None, :, :], axis=2)
-    assert (d.min(axis=1) < 1e-6).all()
+def _raster_slots(pts, mask, T0, dims, q_cap):
+    """The former raster build's semantics, stated directly: stable sort by
+    cell, first q_cap valid in-window points of each cell fill slots."""
+    pw = np.asarray(pts, np.float64) @ np.asarray(T0)[:3, :3].T \
+        + np.asarray(T0)[:3, 3]
+    cc = np.floor(pw / LEAF).astype(np.int64)
+    inside = np.asarray(mask) & np.all((cc >= 0) & (cc < np.asarray(dims)),
+                                       axis=1)
+    wx, wy, wz = dims
+    cell = np.where(inside, (cc[:, 0] * wy + cc[:, 1]) * wz + cc[:, 2],
+                    wx * wy * wz)
+    order = np.argsort(cell, kind="stable")
+    slots = {}
+    for i in order:
+        if cell[i] < wx * wy * wz:
+            slots.setdefault(cell[i], [])
+            if len(slots[cell[i]]) < q_cap:
+                slots[cell[i]].append(i)
+    return {i for v in slots.values() for i in v}
 
 
-def test_raster_respects_pose_binning():
-    """Binning happens at T0; the stored coordinates stay source-frame."""
-    pts, mask = _scan(32)
-    shift = jnp.eye(4).at[0, 3].set(0.9)
-    raster, _ = build_terms_raster(pts, mask, shift, jnp.zeros(3), LEAF,
-                                   DIMS, Q)
-    slots = np.asarray(raster_to_slots(raster, DIMS, Q))
-    placed = slots[slots[:, 3] > 0.5][:, :3]
-    orig = np.asarray(pts)[np.asarray(mask)]
-    d = np.linalg.norm(placed[:, None, :] - orig[None, :, :], axis=2)
-    assert (d.min(axis=1) < 1e-6).all()          # source frame preserved
-    # the binning used the shifted position: a point near the far x edge
-    # at T0 shift falls outside and is dropped
-    far = jnp.asarray([[DIMS[0] * LEAF - 0.05, 1.0, 1.0]], jnp.float32)
-    r2, dropped2 = build_terms_raster(far, jnp.ones(1, bool), shift,
-                                      jnp.zeros(3), LEAF, DIMS, Q)
-    assert int(dropped2) == 1
-
-
-def test_kernel_matches_reference():
-    rows = _synthetic_field()
-    planes = rows_to_planes(rows, DIMS)
+@pytest.mark.parametrize("shift", [0.0, 0.9])
+def test_binning_matches_raster_semantics(shift):
+    """bin_points keeps exactly the points the cell raster held."""
     pts, mask = _scan(300)
-    T0 = jnp.eye(4)
-    raster, _ = build_terms_raster(pts, mask, T0, jnp.zeros(3), LEAF,
-                                   DIMS, Q)
+    T0 = jnp.eye(4).at[0, 3].set(shift)
+    cells, keep = bin_points(pts, mask, T0, jnp.zeros(3), LEAF, DIMS, Q)
+    kept = set(np.flatnonzero(np.asarray(keep)).tolist())
+    assert kept == _raster_slots(pts, mask, T0, DIMS, Q)
+    assert 0 < len(kept) < int(mask.sum())        # the cap bites
+    c_ref, k_ref = bin_points_reference(pts, mask, T0, np.zeros(3), LEAF,
+                                        DIMS, Q)
+    np.testing.assert_array_equal(np.asarray(cells), c_ref)
+    np.testing.assert_array_equal(np.asarray(keep), k_ref)
+
+
+def test_binning_drops_points_leaving_the_window():
+    far = jnp.asarray([[DIMS[0] * LEAF - 0.05, 1.0, 1.0],
+                       [1.0e8, 1.0e8, 1.0e8]], jnp.float32)
+    shift = jnp.eye(4).at[0, 3].set(0.9)
+    _, keep = bin_points(far, jnp.ones(2, bool), shift, jnp.zeros(3), LEAF,
+                         DIMS, Q)
+    assert not bool(jnp.any(keep))
+
+
+@pytest.mark.parametrize("dims", [DIMS, (5, 7, 6)])
+def test_pass_matches_reference(dims):
+    rows = _synthetic_field(dims=dims)
+    pts, mask = _scan(300, dims=dims)
+    cells, keep = bin_points(pts, mask, jnp.eye(4), jnp.zeros(3), LEAF,
+                             dims, Q)
     xi = jnp.asarray([0.03, -0.02, 0.01, 0.02, -0.01, 0.015], jnp.float32)
     from tpu_slam.core import se3
     T = se3.exp(xi)
-    gamma = jnp.float32(4.0)
-
-    Hk, bk, ck, mk = ndt_terms_raster(raster, planes, T, gamma, 1.0,
-                                      DIMS, Q, interpret=True)
-    Hr, br, cr, mr = ndt_terms_raster_reference(raster, planes, T, gamma,
-                                                1.0, DIMS, Q)
-    np.testing.assert_allclose(np.asarray(Hk), np.asarray(Hr),
-                               rtol=2e-5, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(bk), np.asarray(br),
-                               rtol=2e-5, atol=2e-4)
-    np.testing.assert_allclose(float(ck), float(cr), rtol=1e-5)
-    assert int(mk) == int(mr)
+    Hk, bk, ck, mk = ndt_terms(pts, cells, keep, rows, T, jnp.float32(4.0),
+                               1.0, dims)
+    Hr, br, cr, mr = ndt_terms_reference(pts, cells, keep, rows, T, 4.0,
+                                         1.0, dims)
+    np.testing.assert_allclose(np.asarray(Hk), Hr, rtol=2e-5,
+                               atol=2e-5 * np.abs(Hr).max())
+    np.testing.assert_allclose(np.asarray(bk), br, rtol=2e-5,
+                               atol=2e-5 * np.abs(br).max())
+    np.testing.assert_allclose(float(ck), cr, rtol=1e-5)
+    assert int(mk) == mr
     assert int(mk) > 100                      # the scan actually matched
 
 
+def test_owned_x_counts_only_owned_points():
+    rows = _synthetic_field()
+    pts, mask = _scan(300)
+    cells, keep = bin_points(pts, mask, jnp.eye(4), jnp.zeros(3), LEAF,
+                             DIMS, Q)
+    T = jnp.eye(4, dtype=jnp.float32)
+    g = jnp.float32(4.0)
+    H, b, c, m_all = ndt_terms(pts, cells, keep, rows, T, g, 1.0, DIMS)
+    parts = [ndt_terms(pts, cells, keep, rows, T, g, 1.0, DIMS,
+                       owned_x=(lo, lo + 2)) for lo in range(0, DIMS[0], 2)]
+    # the count partitions over x-chunks; H/b/cost are not restricted
+    assert sum(int(p[3]) for p in parts) == int(m_all)
+    assert 0 < int(parts[0][3]) < int(m_all)
+    for p in parts:
+        np.testing.assert_allclose(np.asarray(p[0]), np.asarray(H))
+        assert float(p[2]) == float(c)
+
+
 def test_matches_ndt_terms_at_stage_start():
-    """At T == T0 the frozen bins equal the live bins: the raster objective
+    """At T == T0 the frozen bins equal the live bins: the frozen-bin pass
     must reproduce registration.ndt._ndt_terms on a real dense field."""
     from tpu_slam.core.pointcloud import PointCloud
     from tpu_slam.kernels.voxel_hash import VoxelGridSpec
@@ -135,55 +149,38 @@ def test_matches_ndt_terms_at_stage_start():
     cloud = PointCloud.from_points(pts, capacity=1024)
 
     spec = VoxelGridSpec(leaf=0.5, origin=(0.0, 0.0, 0.0), dim_bits=4)
-    vmap = empty_map(4096)
-    vmap = insert_cloud(vmap, cloud, spec, 0.0)
-    params = NDTParams(window_bits=4, pack_any_backend=True,
+    vmap = insert_cloud(empty_map(4096), cloud, spec, 0.0)
+    params = NDTParams(window_bits=4, pack_budget_mb=512,
                        min_voxel_count=3.0)
     field = ndt_field(vmap, spec, params)
     assert field.nbr_rows is not None
 
-    scan_pts = pts[::3] + 0.05
-    scan = PointCloud.from_points(scan_pts, capacity=512)
+    scan = PointCloud.from_points(pts[::3] + 0.05, capacity=512).sanitize()
     T0 = jnp.eye(4, dtype=jnp.float32)
+    H0, b0, c0, frac0 = _ndt_terms(scan, T0, field, spec, params)
 
-    H0, b0, c0, frac0 = _ndt_terms(scan.sanitize(), T0, field, spec, params)
-
-    # same objective through the raster path
-    from tpu_slam.registration.ndt import _ndt_field_dense
+    # same objective through the frozen-bin pass on the window rows (the
+    # nbr_rows center column is exactly rows16); q_cap 8 drops nothing
+    rows16 = field.nbr_rows[:, 4 * 16:5 * 16]
     dims = field.window_dims
-    rows16 = _dense_rows_from_field(field, spec, params, vmap)
-    planes = rows_to_planes(rows16, dims)
-    origin = jnp.asarray(spec.origin, jnp.float32)
-    raster, dropped = build_terms_raster(
-        scan.sanitize().points, scan.sanitize().mask, T0, origin,
-        spec.leaf, dims, 8)
-    assert int(dropped) == 0
-    Hr, br, cr, mr = ndt_terms_raster_reference(
-        raster, planes, T0, jnp.float32(params.score_temperature),
-        params.max_corr_dist, dims, 8)
-
+    cells, keep = bin_points(scan.points, scan.mask, T0,
+                             jnp.zeros(3, jnp.float32), spec.leaf, dims, 8)
+    assert int(keep.sum()) == int(scan.mask.sum())
+    Hr, br, cr, mr = ndt_terms(scan.points, cells, keep, rows16, T0,
+                               jnp.float32(params.score_temperature),
+                               params.max_corr_dist, dims)
     np.testing.assert_allclose(np.asarray(Hr), np.asarray(H0),
                                rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(np.asarray(br), np.asarray(b0),
                                rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(float(cr), float(c0), rtol=1e-4)
-    n_src = float(jnp.sum(scan.sanitize().mask))
+    n_src = float(jnp.sum(scan.mask))
     np.testing.assert_allclose(float(mr) / n_src, float(frac0), atol=1e-6)
 
 
-def _dense_rows_from_field(field, spec, params, vmap):
-    """Reconstruct the (G, 16) dense rows from the packed field (the
-    nbr_rows center column is exactly rows16)."""
-    nbr = field.nbr_rows
-    if nbr.shape[1] == 144:
-        return nbr[:, 4 * 16:5 * 16]
-    return nbr[:, 16:32]
-
-
-def test_ndt_register_pallas_path_recovers_transform():
-    """ndt_register with terms_impl='pallas_interpret' (the integrated
-    raster-kernel path) must recover a known perturbation and agree with
-    the XLA gather path."""
+def test_ndt_register_window_path_recovers_transform():
+    """ndt_register on a window_dims field (the frozen-bin path) recovers
+    a known perturbation and agrees with the live-binned packed path."""
     import dataclasses
 
     from tpu_slam.core import se3
@@ -215,22 +212,54 @@ def test_ndt_register_pallas_path_recovers_transform():
 
     base = NDTParams(window_bits=4, max_iterations=25, coarse_iterations=5,
                      min_voxel_count=3.0, raster_q=8)
-    p_pal = dataclasses.replace(base, terms_impl="pallas_interpret")
-    p_xla = dataclasses.replace(base, terms_impl="xla",
-                                pack_any_backend=True)
+    p_win = dataclasses.replace(base, window_dims=(16, 16, 16))
+    p_pack = dataclasses.replace(base, pack_budget_mb=512)
 
-    f_pal = ndt_field(vmap, spec, p_pal)
-    assert f_pal.planes is not None and f_pal.nbr_rows is None
-    res_pal = ndt_register(src, f_pal, spec, params=p_pal)
-    err = se3.log(se3.compose(se3.inverse(T_true), res_pal.T))
+    f_win = ndt_field(vmap, spec, p_win)
+    assert f_win.rows is not None and f_win.nbr_rows is None
+    res_win = ndt_register(src, f_win, spec, params=p_win)
+    err = se3.log(se3.compose(se3.inverse(T_true), res_win.T))
     assert float(jnp.linalg.norm(err[:3])) < 0.03, np.asarray(err)
     assert float(jnp.linalg.norm(err[3:])) < 0.02, np.asarray(err)
-    assert float(res_pal.matched_fraction) > 0.8
+    assert float(res_win.matched_fraction) > 0.8
 
-    f_xla = ndt_field(vmap, spec, p_xla)
-    res_xla = ndt_register(src, f_xla, spec, params=p_xla)
-    d = se3.log(se3.compose(se3.inverse(res_xla.T), res_pal.T))
-    # the paths differ by design: raster bins freeze at the register-entry
-    # pose while the XLA path re-bins live every pass — they agree to the
-    # optimum's basin width, not bit-exactly
+    f_pack = ndt_field(vmap, spec, p_pack)
+    res_pack = ndt_register(src, f_pack, spec, params=p_pack)
+    d = se3.log(se3.compose(se3.inverse(res_pack.T), res_win.T))
+    # the paths differ by design: frozen bins freeze at each stage-entry
+    # pose while the packed path re-bins live every pass — they agree to
+    # the optimum's basin width, not bit-exactly
     assert float(jnp.linalg.norm(d)) < 0.035, np.asarray(d)
+
+
+@pytest.mark.parametrize("owned_x", [None, (2, 6)])
+def test_triton_pass_interpret_matches_xla(owned_x):
+    """The Triton kernel's body, run by the Pallas interpreter."""
+    from tpu_slam.kernels.ndt_terms_triton import ndt_terms_triton
+
+    dims = (5, 7, 6)
+    rows = _synthetic_field(dims=dims)
+    pts, mask = _scan(300, dims=dims)
+    cells, keep = bin_points(pts, mask, jnp.eye(4), jnp.zeros(3), LEAF,
+                             dims, Q)
+    from tpu_slam.core import se3
+    T = se3.exp(jnp.asarray([0.03, -0.02, 0.01, 0.02, -0.01, 0.015],
+                            jnp.float32))
+    want = ndt_terms(pts, cells, keep, rows, T, jnp.float32(4.0), 1.0, dims,
+                     owned_x=owned_x)
+    got = ndt_terms_triton(pts, cells, keep, rows, T, jnp.float32(4.0), 1.0,
+                           dims, owned_x=owned_x, interpret=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=1e-5,
+                                   atol=1e-6 * float(jnp.abs(w).max()) + 1e-6)
+
+
+def test_terms_pass_names():
+    from tpu_slam.kernels.ndt_terms import terms_pass
+    from tpu_slam.kernels.ndt_terms_triton import ndt_terms_triton
+
+    assert terms_pass("xla") is ndt_terms
+    assert terms_pass("triton") is ndt_terms_triton
+    assert terms_pass("auto") is ndt_terms            # no GPU here
+    with pytest.raises(ValueError):
+        terms_pass("pallas")

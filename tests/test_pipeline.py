@@ -69,7 +69,7 @@ def test_odometry_icp_plane_method():
     clouds, gt = _sequence(n_poses=5)
     cfg = dataclasses.replace(
         ODOM_CFG, method="icp_plane",
-        icp=ICPParams(max_iterations=25, max_corr_dist=1.0, nn_impl="xla"))
+        icp=ICPParams(max_iterations=25, max_corr_dist=1.0))
     odo = LidarOdometry(cfg)
     poses, _ = odo.run(clouds, init_pose=jnp.asarray(gt[0], jnp.float32))
     ate = ate_rmse(poses, gt, align=False)
@@ -88,7 +88,7 @@ def _slam_cfg(**kw):
             max_distance=1.5, min_index_gap=8, max_candidates=4,
             min_matched_fraction=0.5, max_error=0.05,
             icp=ICPParams(max_iterations=25, max_corr_dist=1.0,
-                          huber_delta=0.3, nn_impl="xla")),
+                          huber_delta=0.3)),
         graph=GraphSolveParams(gn_iterations=6, robust_delta=2.0,
                                robust_kernel="cauchy"),
         edge_capacity=256,
@@ -261,8 +261,7 @@ def test_checkpoint_resume_dense_engine(tmp_path):
         odometry=OdometryConfig(
             scan_capacity=4096, downsample_leaf=0.25, map_leaf=0.4,
             map_half_extent=16.0, insert_downsampled=True,
-            ndt=NDTParams(max_iterations=6, window_dims=(32, 32, 16),
-                          terms_impl="pallas_interpret"),
+            ndt=NDTParams(max_iterations=6, window_dims=(32, 32, 16)),
             pyramid_factor=2),
         odometry_engine="dense",
         keyframe_translation=0.2, keyframe_capacity=16,

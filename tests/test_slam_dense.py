@@ -1,4 +1,4 @@
-"""SLAMSystem with the dense-window odometry engine (interpret kernel)."""
+"""SLAMSystem with the dense-window odometry engine."""
 
 import math
 
@@ -43,8 +43,7 @@ def test_slam_dense_engine_full_loop():
             scan_capacity=4096, downsample_leaf=0.3,
             map_leaf=0.5, map_half_extent=16.0, map_capacity=16384,
             ndt=NDTParams(max_iterations=10, coarse_iterations=2,
-                          window_dims=(48, 48, 16),
-                          terms_impl="pallas_interpret"),
+                          window_dims=(48, 48, 16)),
             pyramid_factor=2),
         odometry_engine="dense",
         keyframe_translation=0.4, keyframe_rotation=0.25,
@@ -54,7 +53,7 @@ def test_slam_dense_engine_full_loop():
             max_distance=1.5, min_index_gap=8, max_candidates=4,
             min_matched_fraction=0.5, max_error=0.05,
             icp=ICPParams(max_iterations=25, max_corr_dist=1.0,
-                          huber_delta=0.3, nn_impl="xla")),
+                          huber_delta=0.3)),
         graph=GraphSolveParams(gn_iterations=6, robust_delta=2.0,
                                robust_kernel="cauchy"),
         edge_capacity=256)

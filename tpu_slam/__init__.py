@@ -1,18 +1,18 @@
-"""tpu_slam — a TPU-native 6D LiDAR SLAM engine (JAX / XLA / Pallas / pjit).
+"""tpu_slam — a 6D LiDAR SLAM engine in JAX (XLA / Pallas / shard_map).
 
 Built from scratch with the capabilities of the mandalarobotics/mandala-mapping
 stack (see SURVEY.md): rotating-3D-scanner ingestion, full-rotation scan
 aggregation (reference: m3d/m3d_aggregator/src/m3d_aggregator.cpp), laser-to-axis
 extrinsic calibration (reference: m3d/m3d_calibration/), and a GPU-class
-registration + mapping backend (reference: gpu_6dslam, rebuilt TPU-native).
+registration + mapping backend (reference: gpu_6dslam, redesigned in JAX).
 
-Layer map (TPU-native re-design of the reference's ROS layer stack):
+Layer map (re-design of the reference's ROS layer stack):
 
     pipeline/      odometry + full SLAM orchestration  (ref L6 gpu_6dslam_node)
     graph/         pose-graph GN, Schur, loop closure  (ref L6 CPU graph-SLAM)
     mapping/       hashed voxel map, NDT stats          (ref L6 GPU voxel maps)
     registration/  ICP (pt-pt / pt-plane), NDT          (ref L6 CUDA kernels)
-    kernels/       Pallas NN search, voxel hash, downsample
+    kernels/       terms passes, NN search, voxel hash, downsample
     ingest/        SICK CoLa parse, rotating-unit model, aggregation,
                    calibration                          (ref L1-L5, m3d/*)
     distributed/   mesh shardings + collectives         (replaces ROS pub/sub L0)
@@ -23,16 +23,15 @@ __version__ = "0.1.0"
 
 import jax  # noqa: E402
 
-# TPU XLA lowers f32 matmuls/einsums to bf16 MXU passes by default. For a
-# SLAM engine that is catastrophic in a way no single test catches: every
-# pose composition (`pose @ pred`, 6x6 graph blocks, moment einsums) loses
-# ~3e-3 relative per op, and the odometry pose's rotation determinant decays
-# ~0.25% PER SCAN (measured r5: det 0.81 after 80 scans — the scan shrinks,
-# registration biases, loop verification breaks from the scaled init). Every
-# matmul in this engine has a tiny contraction dim (K=3 point transforms,
-# K=6 graph blocks, (P,P) grams at K=3), so full-f32 costs nothing
-# measurable; the truly hot ops are Pallas kernels, which this JAX-level
-# default does not touch.
+# Full float32 matmuls everywhere: on NVIDIA GPUs XLA may otherwise run f32
+# matmuls/einsums in TF32 (~3 decimal digits). For a SLAM engine that is
+# catastrophic in a way no single test catches: every pose composition
+# (`pose @ pred`, 6x6 graph blocks, moment einsums) loses ~1e-3 relative
+# per op, and the odometry pose's rotation determinant decays scan by scan
+# (the scan shrinks, registration biases, loop verification breaks from the
+# scaled init). Every matmul in this engine has a tiny contraction dim (K=3
+# point transforms, K=6 graph blocks, (P,P) grams at K=3), so full f32
+# costs nothing measurable; the hot terms passes are elementwise work.
 jax.config.update("jax_default_matmul_precision", "highest")
 
 from tpu_slam.core.pointcloud import PointCloud  # noqa: E402

@@ -20,6 +20,7 @@ from tpu_slam.ingest.calibration import (CalibConfig, CalibrationCapture,
                                          CalibrationData, calibrate_gradient,
                                          calibrate_sa, calibrate_twiddle,
                                          capture_from_lms)
+from tpu_slam.utils.compile_cache import enable_compile_cache
 
 
 def _demo_data():
@@ -83,6 +84,7 @@ def main(argv=None):
     p.add_argument("--max-evaluations", type=int, default=300)
     add_common_args(p)
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     import jax.numpy as jnp
 

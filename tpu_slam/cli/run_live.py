@@ -25,6 +25,7 @@ from tpu_slam.ingest.native import NativeLms, NativeM3d
 from tpu_slam.pipeline.config import SLAMConfig
 from tpu_slam.pipeline.live import LiveConfig, LivePipeline
 from tpu_slam.pipeline.slam import SLAMSystem
+from tpu_slam.utils.compile_cache import enable_compile_cache
 
 
 def main(argv=None):
@@ -48,6 +49,7 @@ def main(argv=None):
                         "bringup)")
     add_common_args(p)
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     slam_cfg = apply_overrides(SLAMConfig(), args.set)
     live_cfg = LiveConfig(

@@ -11,6 +11,7 @@ from tpu_slam.ingest.dataset import DatasetReader
 from tpu_slam.pipeline.config import OdometryConfig
 from tpu_slam.pipeline.metrics import ate_rmse, rpe_rmse
 from tpu_slam.pipeline.odometry import LidarOdometry
+from tpu_slam.utils.compile_cache import enable_compile_cache
 
 
 def _clouds_from_dataset(reader, capacity):
@@ -41,6 +42,7 @@ def main(argv=None):
                         "scan; requires --set ndt.window_dims=Wx,Wy,Wz)")
     add_common_args(p)
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     import jax.numpy as jnp
 

@@ -17,6 +17,7 @@ from tpu_slam.pipeline.checkpoint import load_checkpoint, save_checkpoint
 from tpu_slam.pipeline.config import SLAMConfig
 from tpu_slam.pipeline.metrics import ate_rmse
 from tpu_slam.pipeline.slam import SLAMSystem
+from tpu_slam.utils.compile_cache import enable_compile_cache
 
 
 def main(argv=None):
@@ -31,6 +32,7 @@ def main(argv=None):
     p.add_argument("--input-capacity", type=int, default=32768)
     add_common_args(p)
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     import jax.numpy as jnp
     from tpu_slam.core.pointcloud import PointCloud

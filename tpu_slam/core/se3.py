@@ -19,12 +19,12 @@ import jax.numpy as jnp
 
 _EPS = 1e-8
 
-# TPU matmul precision: jnp's default lowers f32 matmuls to bf16 passes on
-# TPU (~0.4% relative error) — catastrophic for pose composition (errors
-# compound over thousands of chained transforms) and centimeter-level for
-# point transforms at room scale. Every product here is tiny (3x3, 4x4, or
-# (N,3)x(3,3)), so full-f32 precision costs nothing measurable; the MXU-
-# bound registration einsums keep the fast default.
+# Matmul precision: a reduced-precision f32 matmul (TF32 on NVIDIA tensor
+# cores keeps ~3 decimal digits) is catastrophic for pose composition
+# (errors compound over thousands of chained transforms) and
+# centimeter-level for point transforms at room scale. Every product here
+# is tiny (3x3, 4x4, or (N,3)x(3,3)), so full-f32 precision costs nothing
+# measurable.
 def _mm(a: jax.Array, b: jax.Array) -> jax.Array:
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
@@ -169,8 +169,8 @@ def from_rt(R: jax.Array, t: jax.Array) -> jax.Array:
 def apply(T: jax.Array, pts: jax.Array) -> jax.Array:
     """Apply a 4x4 transform to an (N, 3) point array.
 
-    TPU note: expressed as a single (N,3)x(3,3) matmul plus broadcast add so
-    XLA maps it onto the MXU (the reference uses pcl::transformPointCloud,
+    Expressed as a single (N,3)x(3,3) matmul plus broadcast add (the
+    reference uses pcl::transformPointCloud,
     m3d_calibration_twiddle.cpp:229-230; this is its batched-matmul analog).
     """
     return _mm(pts, T[:3, :3].T) + T[:3, 3]

@@ -1,10 +1,9 @@
 """Closed-form spectral utilities for batched symmetric 3x3 matrices.
 
-``jnp.linalg.eigh`` on a (M, 3, 3) batch lowers to an iterative solver that
-costs ~0.5-1 us per matrix on TPU (measured 15 ms at M=16k, 81 ms at M=131k)
-and dominated the NDT field build. Every use in the SLAM engine only needs
-eigenVALUES (planarity tests, conditioning floors), for which the exact
-trigonometric (Cardano) solution is a handful of element-wise VPU ops.
+``jnp.linalg.eigh`` on a (M, 3, 3) batch lowers to an iterative solver.
+Every use in the SLAM engine only needs eigenVALUES (planarity tests,
+conditioning floors), for which the exact trigonometric (Cardano) solution
+is a handful of element-wise ops.
 
 The NDT information matrix is computed here without eigenvectors at all:
 instead of flooring the eigenvalues of Sigma at ``ratio * lambda_max`` and

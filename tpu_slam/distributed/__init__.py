@@ -1,4 +1,4 @@
-"""Multi-device / multi-host scaling over the TPU mesh.
+"""Multi-device / multi-host scaling over a device mesh.
 
 Replaces the reference's single-process ROS graph + single-GPU CUDA core
 (SURVEY.md §2.3) with XLA-collective parallelism:

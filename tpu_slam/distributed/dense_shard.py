@@ -12,7 +12,7 @@ pipeline actually run is the dense moment window
     moment pass exchanged across chunk boundaries by two ``ppermute``s
     (exact 27-cell sums at the seams — mapping.dense_map's separable
     passes, distributed);
-  * every LM evaluation is the same Pallas raster kernel on the local
+  * every LM evaluation is the same frozen-bin terms pass on the local
     chunk (one invalid halo plane per side; points binned in the halo
     probe this chunk's border Gaussians), and one ``psum`` of
     H/b/cost/match per evaluation combines the exact global objective;
@@ -41,21 +41,19 @@ from tpu_slam.kernels.voxel_hash import VoxelGridSpec
 from tpu_slam.mapping.dense_map import DenseMomentGrid, grid_insert
 from tpu_slam.registration.ndt import NDTParams, _nbr_moment_pass
 
-_HALO = 4  # x halo planes per side (matches map_shard: local dims stay a
-           # multiple of 8 for the kernel's (8, 32) SMEM output block;
-           # the zero halo planes cost ~nothing — the empty-plane skip
-           # flags them off)
+_HALO = 1  # x halo planes per side: the dx=+-1 neighbours of a chunk's
+           # border cells
 
 
-def _dense_planes_local(rows_l: jax.Array, origin_cell: jax.Array,
+def _dense_rows_local(rows_l: jax.Array, origin_cell: jax.Array,
                         dims: Tuple[int, int, int], spec: VoxelGridSpec,
                         params: NDTParams, n_shards: int, axis_name: str):
-    """Per-device NDT plane tensor from the local x-chunk's moments.
+    """Per-device NDT field rows from the local x-chunk's moments.
 
     The sharded grid_ndt_field: y/z separable neighbor passes run local,
     the x pass sees one ppermute'd plane from each x-neighbor, Gaussians
-    are per-cell local math, and the output planes carry one zero
-    (invalid) halo plane per side for the raster kernel.
+    are per-cell local math, and the output rows carry one zero
+    (invalid) halo plane per side for the terms pass.
     """
     wx, wy, wz = dims
     s_chunk = wx // n_shards
@@ -101,11 +99,9 @@ def _dense_planes_local(rows_l: jax.Array, origin_cell: jax.Array,
         rows16,
         jnp.zeros((_HALO * wy * wz, 16), jnp.float32)], axis=0)
     dims_local = (s_chunk + 2 * _HALO, wy, wz)
-    from tpu_slam.kernels.ndt_terms import rows_to_planes
-    planes = rows_to_planes(rows16, dims_local)
     c0_local = jnp.stack([origin_cell[0] + d * s_chunk - _HALO,
                           origin_cell[1], origin_cell[2]])
-    return planes, c0_local, dims_local
+    return rows16, c0_local, dims_local
 
 
 @functools.partial(jax.jit, static_argnames=("mesh", "spec", "dims",
@@ -131,15 +127,15 @@ def dense_step_sharded(mesh: Mesh, rows: jax.Array, origin_cell: jax.Array,
     Returns (rows', pose', delta', metrics (5,)) with the same shardings.
     Mirrors pipeline.odometry_dense._step_impl at pyramid_factor=1 with
     the window inside its deadband (no scroll, no coarse stage): the
-    constant-velocity prediction, the staged re-binned LM on the raster
-    kernel, the acceptance gate, the polar-Newton orthonormalization,
-    and the weighted insert.
+    constant-velocity prediction, the staged re-binned LM on the
+    frozen-bin terms pass, the acceptance gate, the polar-Newton
+    orthonormalization, and the weighted insert.
     """
     wx, wy, wz = dims
     n_shards = mesh.shape[axis_name]
-    if wx % n_shards or (wx // n_shards) % 8 or wz % 8:
+    if wx % n_shards:
         raise ValueError(f"dims {dims} not shardable over {n_shards} "
-                         "devices (x-chunk and Wz must be multiples of 8)")
+                         "devices (Wx must be a multiple of the count)")
     s_chunk = wx // n_shards
     src = scan.sanitize()
 
@@ -148,36 +144,31 @@ def dense_step_sharded(mesh: Mesh, rows: jax.Array, origin_cell: jax.Array,
         in_specs=(P(axis_name), P(), P(), P(), P(), P()),
         out_specs=(P(axis_name), P(), P(), P()))
     def step(rows_l, oc, pose_, delta_, pts, mask):
-        from tpu_slam.kernels.ndt_terms import (build_terms_raster,
-                                                ndt_terms_raster,
-                                                raster_plane_flags)
+        from tpu_slam.kernels.ndt_terms import bin_points, terms_pass
+        ndt_terms = terms_pass(params.terms_impl)
 
-        planes, c0_local, dims_local = _dense_planes_local(
+        rows16, c0_local, dims_local = _dense_rows_local(
             rows_l, oc, dims, spec, params, n_shards, axis_name)
         n_src = jnp.maximum(jnp.sum(mask.astype(jnp.float32)), 1.0)
-        origin_w = (jnp.asarray(spec.origin, jnp.float32)
-                    + c0_local.astype(jnp.float32) * spec.leaf)
         d_idx = jax.lax.axis_index(axis_name)
         c0gx = c0_local[0] - d_idx * s_chunk + _HALO
 
-        def bin_raster(T_bin):
+        def bin_scan(T_bin):
             pw = pts @ T_bin[:3, :3].T + T_bin[:3, 3]
             gx = jnp.floor((jnp.clip(pw[:, 0], -3e37, 3e37)
                             - spec.origin[0]) / spec.leaf).astype(jnp.int32)
             okg = mask & (gx >= c0gx) & (gx < c0gx + wx)
-            r, _ = build_terms_raster(pts, okg, T_bin, origin_w, spec.leaf,
-                                      dims_local, params.raster_q)
-            return r, raster_plane_flags(r, params.raster_q)
+            return bin_points(pts, okg, T_bin, spec.origin, spec.leaf,
+                              dims_local, params.raster_q, c0_local)
 
-        def make_terms(raster):
-            r, flags = raster
+        def make_terms(bins):
+            cells, keep = bins
 
             def terms(T, gamma):
-                H, b, cost, cnt = ndt_terms_raster(
-                    r, planes, T, gamma, params.max_corr_dist, dims_local,
-                    params.raster_q,
-                    interpret=params.terms_impl == "pallas_interpret",
-                    owned_planes=(_HALO, _HALO + s_chunk), plane_flags=flags)
+                H, b, cost, cnt = ndt_terms(
+                    pts, cells, keep, rows16, T, gamma,
+                    params.max_corr_dist, dims_local,
+                    owned_x=(_HALO, _HALO + s_chunk))
                 H = jax.lax.psum(H, axis_name)
                 b = jax.lax.psum(b, axis_name)
                 cost = jax.lax.psum(cost, axis_name)
@@ -185,8 +176,8 @@ def dense_step_sharded(mesh: Mesh, rows: jax.Array, origin_cell: jax.Array,
                 return H, b, cost, cnt / n_src
             return terms
 
-        def lm_solve(T00, gamma, max_iters, tol, raster):
-            terms = make_terms(raster)
+        def lm_solve(T00, gamma, max_iters, tol, bins):
+            terms = make_terms(bins)
             H0, b0, cost0, frac0 = terms(T00, gamma)
 
             def cond(state):
@@ -226,7 +217,7 @@ def dense_step_sharded(mesh: Mesh, rows: jax.Array, origin_cell: jax.Array,
             def body(c):
                 s, T, it, frac, cost, dx = c
                 T2, _, cost2, _, _, frac2, it2, dx2 = lm_solve(
-                    T, gamma, iters_per_stage, tol, bin_raster(T))
+                    T, gamma, iters_per_stage, tol, bin_scan(T))
                 return (s + 1, T2, it + it2, frac2, cost2, dx2)
 
             init = (jnp.int32(0), T0s, jnp.int32(0), jnp.float32(0.0),

@@ -14,11 +14,12 @@ chip. Sharding (SURVEY.md §2.3 TP row):
   * NDT registration against the sharded map: H, b, cost are sums over
     (point, Gaussian) pairs, so each device computes the partial over ITS
     Gaussians and one ``psum`` combines them — the LM loop then runs
-    replicated. One (6,6)+(6,)+scalars all-reduce per LM iteration rides
-    ICI.
+    replicated. One (6,6)+(6,)+scalars all-reduce per LM iteration.
 
-Registration runs on the dense-window fast tier whenever the packed table
-fits (the same neighbor-packed rows as single-chip registration.ndt):
+With ``window_dims`` set, registration runs the frozen-bin terms pass on
+per-device window rows (``_window_rows_local``); otherwise it runs on the
+dense-window packed tier whenever the packed table fits (the same
+neighbor-packed rows as single-chip registration.ndt):
 
   * every device scatters its slab's voxel moments into the global dense
     window and one ``psum_scatter`` along x hands each device its owned
@@ -60,13 +61,10 @@ from tpu_slam.mapping.voxel_map import (VoxelMap, decode_corner, empty_map,
 from tpu_slam.core.sym3 import floored_info_sym3_tri
 from tpu_slam.registration.ndt import (NDTField, NDTParams, NDTResult,
                                        _ndt_terms, _nbr_moment_pass,
-                                       _pack_neighbor_rows, _pack_tier,
-                                       _use_pallas)
+                                       _pack_neighbor_rows, _pack_tier)
 
-_HALO = 4  # x halo planes per side of a device's chunk in the Pallas tier:
-           # 1 would suffice for the dx=+-1 probes, but the terms kernel's
-           # SMEM output block spans 8 planes, so the local window width
-           # s_chunk + 2*_HALO must stay a multiple of 8
+_HALO = 1  # x halo planes per side of a device's chunk in the window-rows
+           # tier: the dx=+-1 neighbours of the chunk's border cells
 
 
 @jax.tree_util.register_dataclass
@@ -284,21 +282,20 @@ def _window_field_local(local: VoxelMap, spec: VoxelGridSpec,
                     window_dims=(s_chunk + 2, w, w))
 
 
-def _window_planes_local(local: VoxelMap, spec: VoxelGridSpec,
-                         params: NDTParams, center: Optional[jax.Array],
-                         dims: Tuple[int, int, int], n_shards: int,
-                         axis_name: str) -> NDTField:
-    """Per-device dense-window field for the Pallas raster-terms kernel.
+def _window_rows_local(local: VoxelMap, spec: VoxelGridSpec,
+                       params: NDTParams, center: Optional[jax.Array],
+                       dims: Tuple[int, int, int], n_shards: int,
+                       axis_name: str) -> NDTField:
+    """Per-device dense-window field rows for the frozen-bin terms pass.
 
-    The rectangular-window, planes-tier sibling of _window_field_local:
-    same psum_scatter re-shard + ppermute halo exchange (exact 27-sums at
-    chunk boundaries), but the output is the channel-major plane tensor
-    kernels.ndt_terms consumes instead of the XLA neighbor-packed rows —
-    so real multi-chip registration runs the SAME kernel tier the
-    single-chip path does (round-3 verdict weak #5: the sharded path fell
-    back to the ~6x-slower gather tier).  Each device's local window is
-    its x-chunk padded with _HALO invalid planes per side; points binned
-    in the halo probe this device's border Gaussians at dx=+-1.
+    The rectangular-window sibling of _window_field_local: same
+    psum_scatter re-shard + ppermute halo exchange (exact 27-sums at
+    chunk boundaries), but the output is the x-major (G, 16) rows
+    kernels.ndt_terms consumes instead of the neighbor-packed rows — so
+    sharded registration runs the SAME terms pass the single-device path
+    does.  Each device's local window is its x-chunk padded with _HALO
+    invalid planes per side; points binned in the halo probe this
+    device's border Gaussians at dx=+-1.
     """
     b = spec.dim_bits
     n = spec.cells_per_axis
@@ -390,11 +387,9 @@ def _window_planes_local(local: VoxelMap, spec: VoxelGridSpec,
         rows16,
         jnp.zeros((_HALO * wy * wz, 16), jnp.float32)], axis=0)
     dims_local = (s_chunk + 2 * _HALO, wy, wz)
-    from tpu_slam.kernels.ndt_terms import rows_to_planes
-    planes = rows_to_planes(rows16, dims_local)
     origin_cell = jnp.stack([c0[0] + d * s_chunk - _HALO, c0[1], c0[2]])
     return NDTField(keys=local.keys, means=None, info=None, valid=None,
-                    packed=None, nbr_rows=None, planes=planes,
+                    packed=None, nbr_rows=None, rows=rows16,
                     origin_cell=origin_cell, window_dims=dims_local)
 
 
@@ -408,11 +403,13 @@ def ndt_register_sharded(mesh: Mesh, source: PointCloud,
 
     The source cloud is replicated (one scan is small); each device forms
     partial H/b/cost over its owned Gaussians; psum combines; the LM loop
-    runs in lockstep on every device. With the packed window tier active
-    (default on TPU; set pack_any_backend for CPU tests) the field is the
-    halo'd dense window of _window_field_local — bit-comparable to the
-    single-chip fast tier. The matched fraction is exact: the per-point
-    indicator is psum'd so a point straddling chunks counts once.
+    runs in lockstep on every device. With ``window_dims`` set, each
+    device runs the frozen-bin terms pass on its halo'd window rows
+    (_window_rows_local). Otherwise, with the packed window tier active
+    (``pack_budget_mb`` > 0) the field is the halo'd dense window of
+    _window_field_local — bit-comparable to the single-chip packed tier —
+    and the matched fraction is exact: the per-point indicator is psum'd
+    so a point straddling chunks counts once.
     """
     if init_T is None:
         init_T = jnp.eye(4, dtype=source.points.dtype)
@@ -423,12 +420,11 @@ def ndt_register_sharded(mesh: Mesh, source: PointCloud,
         dims = tuple(min(d, spec.cells_per_axis) for d in params.window_dims)
     else:
         dims = ((1 << wb),) * 3
-    # Pallas tier: the same raster kernel as single-chip registration, on
-    # halo-extended per-device chunks (round-3 verdict weak #5)
-    use_kernel = (_use_pallas(params) and params.use_neighborhood
-                  and dims[0] % n_shards == 0
-                  and (dims[0] // n_shards) % 8 == 0 and dims[2] % 8 == 0)
-    use_window = (not use_kernel and params.use_neighborhood
+    # window-rows tier: the same frozen-bin pass as single-device
+    # registration, on halo-extended per-device chunks
+    use_rows = (params.window_dims is not None and params.use_neighborhood
+                  and dims[0] % n_shards == 0)
+    use_window = (not use_rows and params.use_neighborhood
                   and _pack_tier(params, wb) > 0
                   and (1 << wb) % n_shards == 0)
 
@@ -440,9 +436,9 @@ def ndt_register_sharded(mesh: Mesh, source: PointCloud,
     def solve(k_l, c_l, s_l, o_l, st_l, pts, mask, T0):
         local = VoxelMap(keys=k_l[0], count=c_l[0], sum_pts=s_l[0],
                          sum_outer=o_l[0], stamp=st_l[0])
-        if use_kernel:
-            field = _window_planes_local(local, spec, params, center, dims,
-                                         n_shards, axis_name)
+        if use_rows:
+            field = _window_rows_local(local, spec, params, center, dims,
+                                       n_shards, axis_name)
         elif use_window:
             field = _window_field_local(local, spec, params, center,
                                         n_shards, axis_name)
@@ -451,38 +447,34 @@ def ndt_register_sharded(mesh: Mesh, source: PointCloud,
         cloud = PointCloud(points=pts, mask=mask)
         n_src = jnp.maximum(jnp.sum(mask.astype(jnp.float32)), 1.0)
 
-        if use_kernel:
-            from tpu_slam.kernels.ndt_terms import (build_terms_raster,
-                                                    ndt_terms_raster)
+        if use_rows:
+            from tpu_slam.kernels.ndt_terms import bin_points, terms_pass
+            ndt_terms = terms_pass(params.terms_impl)
             dims_local = field.window_dims
             s_chunk = dims[0] // n_shards
-            origin_w = (jnp.asarray(spec.origin, jnp.float32)
-                        + field.origin_cell.astype(jnp.float32) * spec.leaf)
             d_idx = jax.lax.axis_index(axis_name)
             # global window x-range: edge devices' halo planes extend past
             # it, and points there must NOT enter the objective (the
-            # single-chip kernel drops them) — gate by the global bound
+            # single-device pass drops them) — gate by the global bound
             c0gx = field.origin_cell[0] - d_idx * s_chunk + _HALO
 
-            def bin_raster(T_bin):
+            def bin_scan(T_bin):
                 pw = pts @ T_bin[:3, :3].T + T_bin[:3, 3]
                 gx = jnp.floor(
                     (jnp.clip(pw[:, 0],
                               -3e37, 3e37) - spec.origin[0])
                     / spec.leaf).astype(jnp.int32)
                 okg = mask & (gx >= c0gx) & (gx < c0gx + dims[0])
-                r, _ = build_terms_raster(pts, okg, T_bin, origin_w,
-                                          spec.leaf, dims_local,
-                                          params.raster_q)
-                return r
+                return bin_points(pts, okg, T_bin, spec.origin, spec.leaf,
+                                  dims_local, params.raster_q,
+                                  field.origin_cell)
 
-            def make_terms(raster):
+            def make_terms(bins):
                 def terms(T, gamma):
-                    H, b, cost, cnt = ndt_terms_raster(
-                        raster, field.planes, T, gamma,
-                        params.max_corr_dist, dims_local, params.raster_q,
-                        interpret=params.terms_impl == "pallas_interpret",
-                        owned_planes=(_HALO, _HALO + s_chunk))
+                    H, b, cost, cnt = ndt_terms(
+                        pts, bins[0], bins[1], field.rows, T, gamma,
+                        params.max_corr_dist, dims_local,
+                        owned_x=(_HALO, _HALO + s_chunk))
                     H = jax.lax.psum(H, axis_name)
                     b = jax.lax.psum(b, axis_name)
                     cost = jax.lax.psum(cost, axis_name)
@@ -494,9 +486,9 @@ def ndt_register_sharded(mesh: Mesh, source: PointCloud,
                     return H, b, cost, cnt / n_src
                 return terms
         else:
-            bin_raster = None
+            bin_scan = None
 
-            def make_terms(_raster):
+            def make_terms(_bins):
                 def terms(T, gamma):
                     H, b, cost, match = _ndt_terms(
                         cloud, T, field, spec, params, gamma,
@@ -512,8 +504,8 @@ def ndt_register_sharded(mesh: Mesh, source: PointCloud,
                     return H, b, cost, frac
                 return terms
 
-        def lm_solve(T00, gamma, max_iters, tol, raster=None):
-            terms = make_terms(raster)
+        def lm_solve(T00, gamma, max_iters, tol, bins=None):
+            terms = make_terms(bins)
             H0, b0, cost0, frac0 = terms(T00, gamma)
 
             def cond(state):
@@ -544,12 +536,12 @@ def ndt_register_sharded(mesh: Mesh, source: PointCloud,
             return jax.lax.while_loop(cond, body, init)
 
         def staged_solve(T0s, gamma, n_iters, iters_per_stage, tol):
-            """Mirror of ndt_register's staged_kernel_solve cadence
-            (registration/ndt.py:781-804): re-bin the raster at the
+            """Mirror of ndt_register's staged_window_solve cadence
+            (registration/ndt.py): re-bin the scan at the
             CURRENT pose every ``iters_per_stage`` LM iterations, so the
-            sharded kernel tier stays numerically comparable to the
+            sharded window-rows tier stays numerically comparable to the
             single-chip path (the r4 parity test tracks this)."""
-            if not use_kernel:
+            if not use_rows:
                 T2, _, cost2, _, _, frac2, it2, dx2 = lm_solve(
                     T0s, gamma, n_iters, tol)
                 return T2, it2, frac2, cost2, dx2
@@ -562,7 +554,7 @@ def ndt_register_sharded(mesh: Mesh, source: PointCloud,
             def body(c):
                 s, T, it, frac, cost, dx = c
                 T2, _, cost2, _, _, frac2, it2, dx2 = lm_solve(
-                    T, gamma, iters_per_stage, tol, raster=bin_raster(T))
+                    T, gamma, iters_per_stage, tol, bins=bin_scan(T))
                 return (s + 1, T2, it + it2, frac2, cost2, dx2)
 
             init = (jnp.int32(0), T0s, jnp.int32(0), jnp.float32(0.0),
@@ -572,8 +564,8 @@ def ndt_register_sharded(mesh: Mesh, source: PointCloud,
 
         gamma_f = jnp.float32(params.score_temperature)
         T_c, it_c = T0, jnp.int32(0)
-        if use_kernel and params.yaw_candidates > 1:
-            # same yaw-candidate pre-search as the single-chip kernel path
+        if use_rows and params.yaw_candidates > 1:
+            # same yaw-candidate pre-search as the single-device window path
             gamma_y = gamma_f * max(params.coarse_temperature_scale, 1.0)
             offs = jnp.linspace(-params.yaw_span, params.yaw_span,
                                 params.yaw_candidates)
@@ -584,7 +576,7 @@ def ndt_register_sharded(mesh: Mesh, source: PointCloud,
                 Rz = Rz.at[0, 0].set(cy).at[0, 1].set(-sy)
                 Rz = Rz.at[1, 0].set(sy).at[1, 1].set(cy)
                 Ty = T_c @ Rz
-                _, _, cst, _ = make_terms(bin_raster(Ty))(Ty, gamma_y)
+                _, _, cst, _ = make_terms(bin_scan(Ty))(Ty, gamma_y)
                 costs.append(cst)
                 Tys.append(Ty)
             best = jnp.argmin(jnp.stack(costs))

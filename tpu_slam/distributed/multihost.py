@@ -60,8 +60,8 @@ def heartbeat(mesh, axis_name: str = "data",
 
     A hung / dead host stalls the psum past ``timeout_s``; the caller then
     triggers checkpoint-based recovery (save latest state, re-init the
-    cluster, resume). The collective itself cannot be interrupted mid-call
-    on TPU, so the probe runs on a daemon thread and the host-side wait is
+    cluster, resume). The collective itself cannot be interrupted
+    mid-call, so the probe runs on a daemon thread and the host-side wait is
     a bounded ``join``: a dead peer leaves the thread blocked inside the
     psum forever, the join times out, and the caller gets False instead of
     hanging with it.

@@ -159,8 +159,8 @@ def _schur_gn(poses, n_nodes, edge_i, edge_j, edge_T, edge_info, edge_mask,
     axis_name is None). Edge arrays are the LOCAL shard; poses replicated.
 
     All matmuls run at HIGHEST precision: the elimination recurrence chains
-    O(N/D) dependent 6x6 products, and the TPU MXU's default bf16-class
-    passes were measured to amplify into ~25% solution error on a 24-pose
+    O(N/D) dependent 6x6 products, and reduced-precision matmul passes
+    (bf16-class or TF32) amplify into large solution error on a 24-pose
     chain. The blocks are tiny, so full-f32 multiplies cost nothing.
     """
     with jax.default_matmul_precision("highest"):

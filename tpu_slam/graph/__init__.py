@@ -1,6 +1,6 @@
 """Pose-graph backend: graph construction, Gauss-Newton, loop closure.
 
-TPU-native replacement for the reference's CPU graph-SLAM backend
+Replacement for the reference's CPU graph-SLAM backend
 (SURVEY.md §2.2). The solver is matrix-free: Hx products are edge-parallel
 gathers + segment reductions, preconditioned CG does the linear algebra —
 the structure that shards cleanly over a device mesh (distributed/).

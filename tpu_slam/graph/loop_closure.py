@@ -1,7 +1,7 @@
 """Loop-closure detection: proximity candidates + batched ICP verification.
 
 The reference's loop closure lived in the missing CPU graph-SLAM backend
-(SURVEY.md §2.2 [inferred]). TPU-native design: candidate generation is a
+(SURVEY.md §2.2 [inferred]). Design: candidate generation is a
 dense pairwise pose-distance computation (cheap — one (N, N) matrix), and
 verification registers ALL candidate keyframe pairs in one vmapped ICP
 batch — the DP axis of SURVEY.md §2.3, ready to shard over devices.

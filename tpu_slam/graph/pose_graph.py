@@ -1,7 +1,7 @@
 """Pose-graph optimization: Gauss-Newton over SE(3) with a matrix-free PCG.
 
 The reference's SLAM core ran a CPU graph-SLAM backend (g2o-style,
-SURVEY.md §2.2 [inferred]). The TPU-native design keeps the graph as flat
+SURVEY.md §2.2 [inferred]). This design keeps the graph as flat
 device arrays and never materializes the sparse Hessian:
 
   * edge residuals r_e = log(Z_e^-1 T_i^-1 T_j) and their exact Jacobians

@@ -1,6 +1,6 @@
 """Ingestion front end: sensor parsing, frame graph, scan aggregation.
 
-TPU-native, ROS-free re-design of the reference m3d stack (L1-L5 of
+ROS-free re-design of the reference m3d stack (L1-L5 of
 SURVEY.md §1): SICK CoLa-A telegram parsing (ref
 m3d/sick_minimal_driver/src/lms_mini_lib.cpp), the rotating-unit encoder /
 frame-chain model (ref m3d/m3dunit_base/src/encoder_node_li.cpp,

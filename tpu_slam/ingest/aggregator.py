@@ -1,6 +1,6 @@
 """Full-rotation scan aggregation as a functional, jit-compiled state machine.
 
-TPU-native re-design of the reference aggregator
+Functional re-design of the reference aggregator
 (m3d/m3d_aggregator/src/m3d_aggregator.cpp). The reference is a mutable
 accumulator fed one point at a time by ROS callbacks; here the unit of work
 is one *scan line* (all beams sharing one TF transform), and the state is a

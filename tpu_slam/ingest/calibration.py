@@ -1,6 +1,6 @@
 """Laser-to-axis extrinsic calibration (5-DoF) — reference-parity solvers.
 
-Re-implements the m3d_calibration capability (SURVEY.md §3.3) TPU-native:
+Re-implements the m3d_calibration capability (SURVEY.md §3.3) in JAX:
 
   * the **cost** is the reference's half-space overlap count
     (m3d_calibration_twiddle.cpp:199-308): apply the candidate extrinsic to
@@ -15,7 +15,7 @@ Re-implements the m3d_calibration capability (SURVEY.md §3.3) TPU-native:
   * **simulated annealing**: T 1.0 -> <0.001, alpha = 0.99, +-0.001
     perturbations, Metropolis accept exp((best - cand)/T)
     (m3d_calibration_sa.cpp:313-356);
-  * **gradient solver** (TPU-first upgrade): a smooth sigmoid relaxation of
+  * **gradient solver** (an upgrade): a smooth sigmoid relaxation of
     the count cost optimized with Adam — differentiating through the whole
     pipeline, something the CPU reference could not do.
 

@@ -315,7 +315,7 @@ class NativeM3d:
 
 
 class NativeFeeder:
-    """Double-buffered scan-line ring between producer thread and TPU feed."""
+    """Double-buffered scan-line ring between producer thread and device feed."""
 
     def __init__(self, n_slots: int, line_cap: int):
         self.lib = load()

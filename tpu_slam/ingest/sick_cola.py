@@ -21,7 +21,7 @@ Behavioral invariants preserved from the reference (SURVEY.md §7.4 item 4):
     symmetric-FOV convention of lms_poller.cpp:74-100).
 
 This is host I/O code (no jnp): parsing happens on the feed thread; the
-arrays it emits are what get shipped to the TPU.
+arrays it emits are what get shipped to the device.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ universal_velodyne.launch:47-54), and rotating-unit capture built on the
 same frame chain the live path uses (ingest.frames).
 
 Host-side numpy on purpose: scan generation is I/O-side work that feeds the
-TPU, exactly where the real drivers would sit.
+device, exactly where the real drivers would sit.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Voxel-centroid downsampling via sorted segment reductions.
 
-TPU-native replacement for PCL's VoxelGrid filter
+Replacement for PCL's VoxelGrid filter
 (m3d_calibration_twiddle.cpp:279-286 downsamples with a 0.1 m leaf before the
 overlap cost). Instead of hash maps: sort points by voxel key, reduce each
 run of equal keys with segment_sum (deterministic reduction order — fixed

@@ -1,294 +1,127 @@
-"""Fused Pallas ICP terms kernel — correspondence + GN reduction in one pass.
+"""Pair-ICP terms pass on frozen cell bins — correspondence + GN reduction.
 
-The reference's CUDA core ran grid-decomposition NN + ICP iteration kernels
-(SURVEY.md §2.2); round 3's pair ICP emulated that with an 8192x8192 brute-
-force NN per iteration (222 solves/s).  Grid-hash probes are no better on
-TPU — per-index gather cost makes 27x binary searches slower than the brute
-force they replace.  This kernel removes per-point gathers the same way
-kernels.ndt_terms does: BOTH clouds are binned into the dense cell raster
-layout once per solve, and each pass sweeps the 27-cell neighborhood with
-static sublane/lane shifts — correspondence search, Huber weighting, and
-the 6x6 normal-equation reduction fused into one VPU-bound kernel.
-
-Layout (identical to kernels.ndt_terms): window cells (x, y, z) map to
-plane = x, sublane = z % 8, lane = y * (Wz/8) + z // 8; a raster holds per
-cell up to Q points as channel rows [c*Q + q] for c in (x, y, z, valid).
-Source points are stored in SOURCE frame and binned at the solve's init
-pose (frozen bins, live gate + live distances — the pose never moves more
-than a cell within a pair solve); target points are stored in WORLD frame.
-
-Per (src slot, neighbor cell, tgt slot): d2 = |T p - q|^2, running min
-over the 27 x Qt candidates; then r = T p - q_best,
+The target is binned once per solve into a cell-major table: row g holds
+the world coordinates and validity of up to Qt target points of window
+cell g (``target_table``). The source is binned at the stage-entry pose
+with ``kernels.ndt_terms.bin_points`` (frozen cells, Qs per-cell cap).
+Each pass is point-major: every kept source point gathers the 27 table
+rows around its frozen cell (27 x Qt candidates), takes the nearest
+candidate under the live pose T, and the Huber-weighted point-to-point
+normal equations reduce in one fused sum:
 
     w   = inlier * huber(|r|) / |r|-slope      (robust.huber_weight)
     H  += w J^T J,  b += w J^T r,  J = [I | -hat(T p)]
 
-which factorizes through the point exactly as in the NDT kernel with
-Lambda = w I, so only [best_d2, q_best(3)] survive the neighbor loop per
-slot and the 6x6 expansion runs once.
+Exact nearest neighbour within one leaf; correspondences beyond ~leaf
+are not seen (the brute-force ``registration.icp.icp`` covers arbitrary
+displacement at O(N^2) cost).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+import numpy as np
 
-from tpu_slam.kernels.ndt_terms import (_shift_zy, _split_dims,
-                                        build_terms_raster, raster_to_slots)
+from tpu_slam.kernels.ndt_terms import (Dims, cell_ranks, neighbour_index,
+                                        normal_equations)
 
 _BIG = 3.0e38
 
 
-def _icp_kernel(scal_ref, src_ref, tm_ref, t0_ref, tp_ref, out_ref,
-                *, qs: int, qt: int, wy: int, wz: int, n_wx: int,
-                unroll_offsets: bool):
-    """One x-plane of the fused pair-ICP terms pass.
+@functools.partial(jax.jit, static_argnames=("dims", "q_cap"))
+def target_table(points: jax.Array, mask: jax.Array, origin_world: jax.Array,
+                 leaf: float, dims: Dims, q_cap: int) -> jax.Array:
+    """(G, Qt*4) cell-major table of world-frame target points.
 
-    scal_ref (1, 24) SMEM: [T row-major (12), pad(4), maxd2, huber_delta]
-    src_ref  (1, 4*Qs, 8, L8): source-frame points of this plane's cells
-    tm/t0/tp (1, 4*Qt, 8, L8): target planes x-1, x, x+1 (edge-clamped)
-    out_ref  (8, 32) SMEM: [H triu (21), b (6), err, nmatch, wsum]
+    Slot q of row g is [x, y, z, 1] of the rank-q target point of cell g
+    (ranks in input order); empty slots are zero. Points outside the
+    window or past the per-cell capacity are dropped.
     """
-    i = pl.program_id(0)
-    wz8 = wz // 8
-    l8 = wy * wz8
-    t00, t01, t02, t03 = (scal_ref[0, 0], scal_ref[0, 1], scal_ref[0, 2],
-                          scal_ref[0, 3])
-    t10, t11, t12, t13 = (scal_ref[0, 4], scal_ref[0, 5], scal_ref[0, 6],
-                          scal_ref[0, 7])
-    t20, t21, t22, t23 = (scal_ref[0, 8], scal_ref[0, 9], scal_ref[0, 10],
-                          scal_ref[0, 11])
-    maxd2 = scal_ref[0, 16]
-    delta = scal_ref[0, 17]
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (8, l8), 1)
-    sub = jax.lax.broadcasted_iota(jnp.int32, (8, l8), 0)
-    z8 = jax.lax.rem(lane, wz8)
-    z_i = z8 * 8 + sub
-    y_i = lane // wz8
-
-    pxs, pys, pzs, pws = [], [], [], []
-    for q in range(qs):
-        px = src_ref[0, q]
-        py = src_ref[0, qs + q]
-        pz = src_ref[0, 2 * qs + q]
-        pxs.append(t00 * px + t01 * py + t02 * pz + t03)
-        pys.append(t10 * px + t11 * py + t12 * pz + t13)
-        pzs.append(t20 * px + t21 * py + t22 * pz + t23)
-        pws.append(src_ref[0, 3 * qs + q])
-
-    big = jnp.full((8, l8), _BIG, jnp.float32)
-    zero = jnp.zeros((8, l8), jnp.float32)
-    # per src slot: [best_d2, qx, qy, qz]
-    acc = [big, zero, zero, zero] * qs
-
-    def offset_body(k, acc, xref, ok_x):
-        if isinstance(k, int):
-            dy, dz = k // 3 - 1, k % 3 - 1
-        else:
-            dy = k // 3 - 1
-            dz = jax.lax.rem(k, 3) - 1
-        ch = [_shift_zy(xref[0, c], dz, dy, wz8, sub)
-              for c in range(4 * qt)]
-        ok_yz = ((z_i + dz >= 0) & (z_i + dz < wz)
-                 & (y_i + dy >= 0) & (y_i + dy < wy))
-        okd = ok_yz & ok_x
-        out = list(acc)
-        for q in range(qs):
-            bd, bx, by, bz = (out[4 * q], out[4 * q + 1], out[4 * q + 2],
-                              out[4 * q + 3])
-            for t in range(qt):
-                qx, qy, qz = ch[t], ch[qt + t], ch[2 * qt + t]
-                qw = ch[3 * qt + t]
-                r0 = pxs[q] - qx
-                r1 = pys[q] - qy
-                r2 = pzs[q] - qz
-                d2 = r0 * r0 + r1 * r1 + r2 * r2
-                better = okd & (qw > 0.5) & (d2 < bd)
-                bd = jnp.where(better, d2, bd)
-                bx = jnp.where(better, qx, bx)
-                by = jnp.where(better, qy, by)
-                bz = jnp.where(better, qz, bz)
-            out[4 * q], out[4 * q + 1] = bd, bx
-            out[4 * q + 2], out[4 * q + 3] = by, bz
-        return tuple(out)
-
-    acc = tuple(acc)
-    for xref, ok_x in ((tm_ref, i > 0), (t0_ref, jnp.full((), True)),
-                       (tp_ref, i < n_wx - 1)):
-        if unroll_offsets:
-            for k in range(9):
-                acc = offset_body(k, acc, xref, ok_x)
-        else:
-            acc = jax.lax.fori_loop(
-                0, 9, functools.partial(offset_body, xref=xref, ok_x=ok_x),
-                acc)
-
-    h = [zero] * 21
-    b = [zero] * 6
-    err = zero
-    nmatch = zero
-    wsum = zero
-
-    def tri(i_, j_):
-        return i_ * 6 - i_ * (i_ + 1) // 2 + j_
-
-    for q in range(qs):
-        bd, bx, by, bz = (acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
-                          acc[4 * q + 3])
-        matched = (bd < maxd2) & (pws[q] > 0.5)
-        d = jnp.sqrt(jnp.maximum(bd, 1e-18))
-        # robust.huber_weight: 1 inside delta, delta/d outside
-        w = jnp.where(matched,
-                      jnp.where(d <= delta, 1.0, delta / d), 0.0)
-        r0 = pxs[q] - bx
-        r1 = pys[q] - by
-        r2 = pzs[q] - bz
-        y0, y1, y2 = w * r0, w * r1, w * r2
-        px, py, pz = pxs[q], pys[q], pzs[q]
-        b[0] += y0
-        b[1] += y1
-        b[2] += y2
-        b[3] += py * y2 - pz * y1
-        b[4] += pz * y0 - px * y2
-        b[5] += px * y1 - py * y0
-        # H = w J^T J with J = [I | -hat(p)]:
-        #   H_tt = w I; H_tr = -w hat(p); H_rr = w hat(p)^T hat(p)
-        h[tri(0, 0)] += w
-        h[tri(1, 1)] += w
-        h[tri(2, 2)] += w
-        # -w hat(p) = [[0, w pz, -w py], [-w pz, 0, w px], [w py, -w px, 0]]
-        h[tri(0, 4)] += w * pz
-        h[tri(0, 5)] += -w * py
-        h[tri(1, 3)] += -w * pz
-        h[tri(1, 5)] += w * px
-        h[tri(2, 3)] += w * py
-        h[tri(2, 4)] += -w * px
-        # hat^T hat = |p|^2 I - p p^T
-        pp = px * px + py * py + pz * pz
-        h[tri(3, 3)] += w * (pp - px * px)
-        h[tri(3, 4)] += -w * px * py
-        h[tri(3, 5)] += -w * px * pz
-        h[tri(4, 4)] += w * (pp - py * py)
-        h[tri(4, 5)] += -w * py * pz
-        h[tri(5, 5)] += w * (pp - pz * pz)
-        err += w * bd
-        nmatch += matched.astype(jnp.float32)
-        wsum += w
-
-    row = jax.lax.rem(i, 8)
-    vals = h + b + [err, nmatch, wsum]
-    for idx, v in enumerate(vals):
-        out_ref[row, idx] = jnp.sum(v)
-    for idx in range(len(vals), 32):
-        out_ref[row, idx] = 0.0
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("dims", "qs", "qt", "interpret"))
-def icp_terms_raster(src_raster: jax.Array, tgt_raster: jax.Array,
-                     T: jax.Array, max_corr_dist: float, huber_delta: float,
-                     dims: Tuple[int, int, int], qs: int, qt: int,
-                     interpret: bool = False):
-    """Fused pair-ICP terms pass (Pallas).
-
-    Returns (H (6,6), b (6,), err (), nmatch (), wsum ()).
-    """
-    wx, wy, wz = dims
-    _, _, _, l8 = _split_dims(dims)
-    scal = jnp.concatenate([
-        T[:3].reshape(-1).astype(jnp.float32), jnp.zeros((4,), jnp.float32),
-        jnp.stack([jnp.float32(max_corr_dist) ** 2,
-                   jnp.float32(huber_delta)]),
-        jnp.zeros((6,), jnp.float32)]).reshape(1, 24)
-
-    kernel = functools.partial(_icp_kernel, qs=qs, qt=qt, wy=wy, wz=wz,
-                               n_wx=wx, unroll_offsets=not interpret)
-    out = pl.pallas_call(
-        kernel,
-        grid=(wx,),
-        in_specs=[
-            pl.BlockSpec((1, 24), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 4 * qs, 8, l8), lambda i: (i, 0, 0, 0)),
-            pl.BlockSpec((1, 4 * qt, 8, l8),
-                         lambda i: (jnp.maximum(i - 1, 0), 0, 0, 0)),
-            pl.BlockSpec((1, 4 * qt, 8, l8), lambda i: (i, 0, 0, 0)),
-            pl.BlockSpec((1, 4 * qt, 8, l8),
-                         lambda i: (jnp.minimum(i + 1, wx - 1), 0, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((8, 32), lambda i: (i // 8, 0),
-                               memory_space=pltpu.SMEM),
-        out_shape=jax.ShapeDtypeStruct((wx, 32), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024),
-        interpret=interpret,
-    )(scal, src_raster, tgt_raster, tgt_raster, tgt_raster)
-
-    tot = jnp.sum(out, axis=0)
-    iu0, iu1 = jnp.triu_indices(6)
-    H = jnp.zeros((6, 6), jnp.float32).at[iu0, iu1].set(tot[:21])
-    H = H + jnp.triu(H, 1).T
-    return H, tot[21:27], tot[27], tot[28], tot[29]
-
-
-def icp_terms_raster_reference(src_raster, tgt_raster, T, max_corr_dist,
-                               huber_delta, dims, qs, qt):
-    """Dense XLA implementation of icp_terms_raster (tests)."""
     wx, wy, wz = dims
     g = wx * wy * wz
-    sr = raster_to_slots(src_raster, dims, qs)      # (G*Qs, 4)
-    tr = raster_to_slots(tgt_raster, dims, qt)      # (G*Qt, 4)
-    pts = sr[:, :3] @ T[:3, :3].T + T[:3, 3]
-    pw = sr[:, 3]
+    eye = jnp.eye(4, dtype=jnp.float32)
+    _, cell, rank = cell_ranks(points, mask, eye, origin_world, leaf, dims,
+                               q_cap, jnp.zeros((3,), jnp.int32))
+    keep = (cell < g) & (rank < q_cap)
+    slot = jnp.where(keep, cell * q_cap + rank, g * q_cap)
+    vals = jnp.concatenate([points, jnp.ones_like(points[:, :1])], axis=1)
+    table = jnp.zeros((g * q_cap, 4), jnp.float32).at[slot].set(
+        vals, mode="drop", unique_indices=True)
+    return table.reshape(g, q_cap * 4)
 
-    cell = jnp.arange(g * qs, dtype=jnp.int32) // qs
-    cx = cell // (wy * wz)
-    cy = (cell // wz) % wy
-    cz = cell % wz
 
-    tcell = tr.reshape(g, qt, 4)
-    best_d2 = jnp.full((g * qs,), _BIG, jnp.float32)
-    best_q = jnp.zeros((g * qs, 3), jnp.float32)
-    for dx in (-1, 0, 1):
-        for dy in (-1, 0, 1):
-            for dz in (-1, 0, 1):
-                nx, ny, nz = cx + dx, cy + dy, cz + dz
-                ok = ((nx >= 0) & (nx < wx) & (ny >= 0) & (ny < wy)
-                      & (nz >= 0) & (nz < wz))
-                nc = jnp.clip((nx * wy + ny) * wz + nz, 0, g - 1)
-                cand = jnp.take(tcell, nc, axis=0)  # (G*Qs, Qt, 4)
-                d = pts[:, None, :] - cand[..., :3]
-                d2 = jnp.sum(d * d, axis=-1)
-                d2 = jnp.where(ok[:, None] & (cand[..., 3] > 0.5), d2, _BIG)
-                t_best = jnp.argmin(d2, axis=1)
-                t_d2 = jnp.take_along_axis(d2, t_best[:, None], 1)[:, 0]
-                t_q = jnp.take_along_axis(
-                    cand[..., :3], t_best[:, None, None].repeat(3, -1),
-                    1)[:, 0]
-                better = t_d2 < best_d2
-                best_d2 = jnp.where(better, t_d2, best_d2)
-                best_q = jnp.where(better[:, None], t_q, best_q)
+@functools.partial(jax.jit, static_argnames=("dims",))
+def icp_terms(points: jax.Array, cells: jax.Array, keep: jax.Array,
+              table: jax.Array, T: jax.Array, max_corr_dist: float,
+              huber_delta: float, dims: Dims):
+    """Frozen-bin pair-ICP terms at pose T.
 
-    matched = (best_d2 < max_corr_dist ** 2) & (pw > 0.5)
-    d = jnp.sqrt(jnp.maximum(best_d2, 1e-18))
-    w = jnp.where(matched, jnp.where(d <= huber_delta, 1.0,
-                                     huber_delta / d), 0.0)
-    r = pts - best_q
-    n = pts.shape[0]
-    phat = jnp.stack([
-        jnp.stack([jnp.zeros(n), -pts[:, 2], pts[:, 1]], -1),
-        jnp.stack([pts[:, 2], jnp.zeros(n), -pts[:, 0]], -1),
-        jnp.stack([-pts[:, 1], pts[:, 0], jnp.zeros(n)], -1)], -2)
-    J = jnp.concatenate(
-        [jnp.broadcast_to(jnp.eye(3, dtype=jnp.float32), (n, 3, 3)),
-         -phat], axis=2)
-    H = jnp.einsum("nia,n,nib->ab", J, w, J)
-    b = jnp.einsum("nia,ni->a", J, w[:, None] * r)
-    return (H, b, jnp.sum(w * best_d2 * matched),
+    points (N, 3) source frame; (cells, keep) from bin_points; table from
+    target_table. Returns (H (6,6), b (6,), err (), nmatch (), wsum ()).
+    """
+    n = points.shape[0]
+    qt = table.shape[1] // 4
+    pts = points @ T[:3, :3].T + T[:3, 3]
+    lin, ok = neighbour_index(cells, dims)
+    C = jnp.take(table, lin, axis=0).reshape(n, 27 * qt, 4)
+    d = pts[:, None, :] - C[..., :3]
+    d2 = jnp.sum(d * d, axis=-1)
+    valid = jnp.repeat(ok, qt, axis=1) & (C[..., 3] > 0.5)
+    d2 = jnp.where(valid, d2, _BIG)
+    best = jnp.argmin(d2, axis=1)
+    best_d2 = jnp.take_along_axis(d2, best[:, None], axis=1)[:, 0]
+    q_best = jnp.take_along_axis(C[..., :3], best[:, None, None], axis=1)[:, 0]
+    matched = keep & (best_d2 < jnp.float32(max_corr_dist) ** 2)
+    dist = jnp.sqrt(jnp.maximum(best_d2, 1e-18))
+    w = jnp.where(matched, jnp.where(dist <= huber_delta, 1.0,
+                                     huber_delta / dist), 0.0)
+    zero = jnp.zeros_like(w)
+    y = w[:, None] * (pts - q_best)
+    c = jnp.stack([w, zero, zero, w, zero, w], axis=1)
+    H, b = normal_equations(pts, y, c)
+    return (H, b, jnp.sum(jnp.where(matched, w * best_d2, 0.0)),
             jnp.sum(matched.astype(jnp.float32)), jnp.sum(w))
+
+
+def icp_terms_reference(points, cells, keep, tgt_points, tgt_cells,
+                        tgt_keep, T, max_corr_dist, huber_delta,
+                        chunk=256):
+    """float64 numpy frozen-bin pair-ICP terms (brute force over the kept
+    target points of each source point's 27-neighbourhood)."""
+    p = np.asarray(points, np.float64)
+    T = np.asarray(T, np.float64)
+    p = p @ T[:3, :3].T + T[:3, 3]
+    cells = np.asarray(cells)
+    keep = np.asarray(keep, bool)
+    tk = np.asarray(tgt_keep, bool)
+    tq = np.asarray(tgt_points, np.float64)[tk]
+    tc = np.asarray(tgt_cells)[tk]
+    best_d2 = np.full(len(p), np.inf)
+    best_q = np.zeros((len(p), 3))
+    for s in range(0, len(p), chunk):
+        ps, cs = p[s:s + chunk], cells[s:s + chunk]
+        near = np.all(np.abs(cs[:, None, :] - tc[None, :, :]) <= 1, axis=2)
+        d2 = np.sum((ps[:, None, :] - tq[None, :, :]) ** 2, axis=2)
+        d2 = np.where(near, d2, np.inf)
+        if d2.shape[1] == 0:
+            continue
+        j = np.argmin(d2, axis=1)
+        best_d2[s:s + chunk] = d2[np.arange(len(ps)), j]
+        best_q[s:s + chunk] = tq[j]
+    matched = keep & (best_d2 < max_corr_dist ** 2)
+    dist = np.sqrt(np.maximum(np.where(matched, best_d2, 1.0), 1e-18))
+    w = np.where(matched, np.where(dist <= huber_delta, 1.0,
+                                   huber_delta / dist), 0.0)
+    r = np.where(matched[:, None], p - best_q, 0.0)
+    J = np.zeros((len(p), 3, 6))
+    J[:, :, :3] = np.eye(3)
+    J[:, 0, 4], J[:, 0, 5] = p[:, 2], -p[:, 1]
+    J[:, 1, 3], J[:, 1, 5] = -p[:, 2], p[:, 0]
+    J[:, 2, 3], J[:, 2, 4] = p[:, 1], -p[:, 0]
+    H = np.einsum("nia,n,nib->ab", J, w, J)
+    b = np.einsum("nia,ni->a", J, w[:, None] * r)
+    err = float(np.sum(np.where(matched, w * best_d2, 0.0)))
+    return H, b, err, int(matched.sum()), float(w.sum())

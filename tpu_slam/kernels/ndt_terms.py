@@ -1,34 +1,24 @@
-"""Pallas NDT terms-pass kernel — the hot loop of scan-to-map registration.
+"""NDT terms pass — the hot loop of scan-to-map registration.
 
-The reference's CUDA core evaluated NDT correspondences with per-point
-grid-hash gathers (SURVEY.md §2.2); XLA `jnp.take` emulations of that
-pattern run at ~1-2% of roofline on TPU.  This kernel removes gathers from
-the hot path entirely by making BOTH sides of the correspondence dense and
-grid-aligned, in a layout chosen so every vector op uses FULL (8, 128)
-vregs (the v1 kernel computed on (1, L) slices — 1/8 sublane utilization —
-and measured 10 ms/pass; this layout is the fix):
+Point-major frozen-bin pass over a dense field window:
 
-  * window cells (x, y, z) map to  plane = x,  sublane = z % 8,
-    lane = y * (Wz/8) + z // 8.  A whole x-plane is one (8, L8) tile set,
-    L8 = Wy*Wz/8 lanes (multiple of 128).
-  * the NDT field is a dense plane tensor ``planes`` (Wx, 16, 8, L8):
-    channels 0-2 mean (world), 3-8 information triu, 9 valid;
-  * the scan is binned ONCE per solve stage into a raster of the same
-    shape (Wx, 4*Q, 8, L8): channel row c*Q + q holds coordinate c of the
-    cell's rank-q point (c = x, y, z, valid-weight), so the per-q point
-    arrays are full (8, L8) tiles too;
-  * the 27-neighborhood becomes 3 plane refs (x-1, x, x+1 via clamped
-    BlockSpec index maps) x 3 sublane shifts-with-carry (dz) x 3 lane
-    rolls (dy) — all STATIC shifts, no gathers, no dynamic control flow.
+  * the field is the window's x-major ``(G, 16)`` rows (cell index
+    ``(x*Wy + y)*Wz + z``): channels 0-2 world mean, 3-8 information
+    upper triangle, 9 valid;
+  * once per solve stage, ``bin_points`` computes each scan point's
+    window cell at the stage-entry pose T0 and a keep mask: inside the
+    window, and rank < ``q_cap`` among the points of its cell (stable,
+    in input order);
+  * every pass (``ndt_terms``) transforms the kept points by the live
+    pose T, gathers the 27 neighbour rows of each point's FROZEN cell
+    (bounds-masked per axis), evaluates the tempered Mahalanobis scores
+    lane-wise on (N, 27), and reduces to the 6x6 normal equations.
 
-The raster build does the sparse work (binning) with ops this chip is
-actually fast at — argsort, takes, scatter-min, scalar scatter-sets, all
-measured 0.03-0.07 ms at 32k points — and none it is slow at (cumulative
-scans cost 2.5-60 ms at this size; v1's rank-by-cummax was the entire
-102 ms build cost).
+A scan registered against a window reads about N x 27 x 64 bytes per
+pass (~32 MB at 18.6k points), independent of the window size.
 
-Objective (identical math to registration.ndt._ndt_terms, with bins frozen
-at the stage-start pose T0):
+Objective (the math of registration.ndt._ndt_terms, with bins frozen at
+the stage-start pose T0):
 
     cost(T) = -sum_{p, k in nbr27(bin(p))} s_pk,
     s_pk = exp(-d2_pk / (2 gamma)) gated by |T p - mu_k| < max_corr_dist
@@ -39,522 +29,303 @@ keeps every LM iteration minimizing ONE well-defined objective; within a
 stage the pose moves far less than a cell, so the frozen 27-neighborhood
 loses nothing.  Each solve stage re-bins at its own entry pose.
 
-Per-pass roofline (W=64^3, Q=4, f32): HBM streams raster 16.8 MB +
-3x16.8 MB plane reads -> ~82 us floor; VPU does 27 * G * Q * ~38 lane-ops
-~ 1.1e9 -> ~280 us floor at 4 ops/lane/cycle.  The kernel is VPU-bound
-(pure elementwise math, nothing for the MXU); speed of light is the
-compute floor, not the HBM floor.  See docs/roofline.md.
+``ndt_terms_reference`` is a float64 numpy statement of the same pass,
+written independently of the jnp code, for parity checks.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+import numpy as np
 
-
-def _split_dims(dims: Tuple[int, int, int]) -> Tuple[int, int, int, int]:
-    wx, wy, wz = dims
-    if wx % 8 != 0:
-        raise ValueError(f"Wx must be a multiple of 8 (got {wx}): the "
-                         "(8, 32) SMEM output block spans 8 planes")
-    if wz % 8 != 0:
-        raise ValueError(f"Wz must be a multiple of 8 (got {wz}): z%8 is "
-                         "the sublane index")
-    wz8 = wz // 8
-    l8 = wy * wz8
-    # l8 need not be a multiple of 128 (Mosaic masks the lane tail), but
-    # production windows should keep it aligned for full-lane vregs.
-    return wx, wy, wz8, l8
+Dims = Tuple[int, int, int]
 
 
 # ---------------------------------------------------------------------------
-# Raster build (XLA; once per solve stage, amortized over ~10-30 passes)
+# Binning (once per solve stage, amortized over the stage's passes)
 # ---------------------------------------------------------------------------
 
-@functools.partial(jax.jit, static_argnames=("dims", "q_cap"))
-def build_terms_raster(points: jax.Array, mask: jax.Array, T0: jax.Array,
-                       origin_world: jax.Array, leaf: float,
-                       dims: Tuple[int, int, int], q_cap: int
-                       ) -> Tuple[jax.Array, jax.Array]:
-    """Bin the scan (at pose T0) into the kernel-layout raster.
+def window_cells(points: jax.Array, T0: jax.Array, grid_origin: jax.Array,
+                 leaf: float, dims: Dims, origin_cell: jax.Array
+                 ) -> jax.Array:
+    """(N, 3) int32 window cell of each point at pose T0.
 
-    points (N, 3) source-frame; origin_world (3,) = world coordinate of
-    window cell (0,0,0)'s corner.  Returns (raster (Wx, 4*Q, 8, L8) f32
-    holding SOURCE-frame points + validity, n_dropped () int32 — points in
-    cells that exceeded the per-cell capacity Q plus points outside the
-    window at T0; neither enters the objective).
+    The cell is taken on the global lattice (``grid_origin``, ``leaf``)
+    and shifted by the window corner ``origin_cell`` in integers, so two
+    windows on one lattice (a device's halo'd chunk and the whole window)
+    bin every point identically. Coordinates are clipped before the
+    integer conversion (padding points sit at 1e8), and cells to
+    [-1, dims], which leaves every in-window cell and the outside test
+    unchanged.
+    """
+    pts_w = points @ T0[:3, :3].T + T0[:3, 3]
+    rel = jnp.clip((pts_w - jnp.asarray(grid_origin, jnp.float32)) / leaf,
+                   -2.0 ** 24, 2.0 ** 24)
+    cc = jnp.floor(rel).astype(jnp.int32) - origin_cell
+    return jnp.clip(cc, -1, jnp.asarray(dims, jnp.int32))
 
-    The raster stores source-frame coordinates; the kernel applies the
-    live pose T each pass, so one raster serves a whole LM stage.
+
+def in_window(cells: jax.Array, dims: Dims) -> jax.Array:
+    """(N,) bool: cell inside the window on every axis."""
+    return jnp.all((cells >= 0) & (cells < jnp.asarray(dims, jnp.int32)),
+                   axis=1)
+
+
+def cell_ranks(points: jax.Array, mask: jax.Array, T0: jax.Array,
+               grid_origin: jax.Array, leaf: float, dims: Dims, q_cap: int,
+               origin_cell: jax.Array
+               ) -> Tuple[jax.Array, jax.Array, jax.Array]:
+    """(cells (N,3), flat cell (N,) with G = outside, rank (N,)) at T0.
+
+    rank is each point's position among the valid points of its cell in
+    input order, exact below ``q_cap`` and saturating at it.
     """
     wx, wy, wz = dims
-    _, _, wz8, l8 = _split_dims(dims)
     g = wx * wy * wz
     n = points.shape[0]
     idx = jnp.arange(n, dtype=jnp.int32)
-
-    pts_w = points @ T0[:3, :3].T + T0[:3, 3]
-    cc = jnp.floor((pts_w - origin_world) / leaf).astype(jnp.int32)
-    inside = (mask & (cc[:, 0] >= 0) & (cc[:, 0] < wx)
-              & (cc[:, 1] >= 0) & (cc[:, 1] < wy)
-              & (cc[:, 2] >= 0) & (cc[:, 2] < wz))
-    cell = (cc[:, 0] * wy + cc[:, 1]) * wz + cc[:, 2]
+    cells = window_cells(points, T0, grid_origin, leaf, dims, origin_cell)
+    inside = mask & in_window(cells, dims)
+    cell = (cells[:, 0] * wy + cells[:, 1]) * wz + cells[:, 2]
     cell = jnp.where(inside, cell, g)
-
-    # group points of a cell contiguously; rank = position within group.
-    # Only ranks < q_cap matter, so rank comes from q_cap shifted
-    # compares on the sorted keys (sum of [sc[i-j] == sc[i]], exact
-    # whenever it is < q_cap and saturating otherwise) — no cumulative
-    # scan (60 ms at this size: TPU scans are serial) and no cell-table
-    # scatter-min + gather (0.55 ms device-side).
+    # group points of a cell contiguously; only ranks < q_cap matter, so
+    # rank comes from q_cap shifted compares on the sorted keys
     order = jnp.argsort(cell, stable=True)
     sc = jnp.take(cell, order)
-    sp = jnp.take(points, order, axis=0)
     rank = jnp.zeros((n,), jnp.int32)
     for j in range(1, q_cap + 1):
-        # clamped-shift compare (jnp.take, not sc[:-j] concat — the slice is
-        # empty when n <= j and the concat would trace a wrong-length array
-        # for tiny clouds)
         prev = jnp.where(idx >= j, jnp.take(sc, jnp.maximum(idx - j, 0)),
                          jnp.int32(-1))
         rank = rank + (prev == sc).astype(jnp.int32)
-    keep = (sc < g) & (rank < q_cap)
-
-    # Scatter DIRECTLY into the kernel plane layout (plane x, channel row
-    # c*Q + rank, sublane z%8, lane y*Wz8 + z//8) with per-(point, channel)
-    # linear indices.  Two earlier shapes of this build both lost to the
-    # layout shuffle, not the scatter: four scalar scatters into the
-    # LAYOUT-transposed table cost 0.5-4 ms, and the r4 row-scatter into a
-    # cell-major (G*Q, 4) table followed by a dense (x,y,z8,s,q,c) ->
-    # (x,c,q,s,y,z8) transpose cost 15.7 ms at (160,160,32) — the
-    # minor-dim-4 relayout is the pathological part (r5 profile:
-    # sort+rank+scatter sum to <1 ms; the transpose is the rest).  One
-    # scatter of 4N scalar indices pays ~5 ns/index and needs no relayout
-    # at all.  Dropped points scatter OUT of bounds, so mode="drop" really
-    # drops them and unique_indices=True is honest.
-    sx = sc // (wy * wz)
-    sy = (sc // wz) % wy
-    szz = sc % wz
-    lin0 = (((sx * (4 * q_cap) + rank) * 8 + szz % 8) * l8
-            + sy * wz8 + szz // 8)
-    total = wx * 4 * q_cap * 8 * l8
-    lin0 = jnp.where(keep, lin0, total)
-    chan_off = jnp.arange(4, dtype=jnp.int32) * (q_cap * 8 * l8)
-    lin = (lin0[:, None] + chan_off[None, :]).reshape(-1)      # (4n,)
-    vals = jnp.concatenate(
-        [jnp.where(keep[:, None], sp, 0.0),
-         keep[:, None].astype(jnp.float32)], axis=1).reshape(-1)
-    raster = jnp.zeros((total,), jnp.float32).at[lin].set(
-        vals, mode="drop", unique_indices=True).reshape(wx, 4 * q_cap, 8, l8)
-    n_dropped = (jnp.sum(mask.astype(jnp.int32))
-                 - jnp.sum(keep.astype(jnp.int32)))
-    return raster, n_dropped
+    rank = jnp.zeros((n,), jnp.int32).at[order].set(rank,
+                                                    unique_indices=True)
+    return cells, cell, rank
 
 
-def rows_to_planes(rows16: jax.Array, dims: Tuple[int, int, int]
-                   ) -> jax.Array:
-    """(G, 16) x-major field rows -> (Wx, 16, 8, L8) kernel plane tensor."""
-    wx, wy, _ = dims
-    _, _, wz8, l8 = _split_dims(dims)
-    r = rows16.reshape(wx, wy, wz8, 8, 16)
-    return jnp.transpose(r, (0, 4, 3, 1, 2)).reshape(wx, 16, 8, l8)
+@functools.partial(jax.jit, static_argnames=("dims", "q_cap"))
+def bin_points(points: jax.Array, mask: jax.Array, T0: jax.Array,
+               grid_origin: jax.Array, leaf: float, dims: Dims,
+               q_cap: int, origin_cell: Optional[jax.Array] = None
+               ) -> Tuple[jax.Array, jax.Array]:
+    """Frozen cells and keep mask of a scan at the stage-entry pose T0.
 
-
-# ---------------------------------------------------------------------------
-# The kernel
-# ---------------------------------------------------------------------------
-
-def _shift_zy(x: jax.Array, dz, dy, wz8: int, sub: jax.Array) -> jax.Array:
-    """out[s, l] = x at the cell whose (y, z) index is (y + dy, z + dz).
-
-    z = z8*8 + s with z8 = l % Wz8 on lanes: a +-1 z step is a sublane
-    roll, with the s-boundary carry (sublane 7 for dz=+1, 0 for dz=-1)
-    taking its value from an extra lane-rolled copy; a y step folds into
-    the same lane rolls.  dz/dy may be python ints (static shifts — the
-    fast Mosaic lowering) or traced scalars (fori_loop over offsets — the
-    compact graph the interpret-mode tests need).  Out-of-range wrap is
-    masked by the caller's bounds mask.
-    """
-    l8 = x.shape[1]
-    if isinstance(dz, int):
-        a = pltpu.roll(x, (-dz) % 8, axis=0) if dz else x
-        a2 = pltpu.roll(a, (-dy * wz8) % l8, axis=1) if dy else a
-        if dz == 0:
-            return a2
-        b2 = pltpu.roll(a, (-dy * wz8 - dz) % l8, axis=1)
-        return jnp.where(sub == (7 if dz > 0 else 0), b2, a2)
-    a = pltpu.roll(x, jnp.mod(-dz, 8), axis=0)      # a[s,l] = x[(s+dz)%8,l]
-    a2 = pltpu.roll(a, jnp.mod(-dy * wz8, l8), axis=1)
-    b2 = pltpu.roll(a, jnp.mod(-dy * wz8 - dz, l8), axis=1)
-    # carry sublane: 7 for dz=+1, 0 for dz=-1, none (-1 sentinel) for dz=0
-    edge = jnp.where(dz > 0, 7, jnp.where(dz < 0, 0, -1))
-    return jnp.where(sub == edge, b2, a2)
-
-
-def _terms_kernel(scal_ref, flags_ref, raster_ref, rm_ref, r0_ref, rp_ref,
-                  out_ref, *, q_cap: int, wy: int, wz: int, n_wx: int,
-                  unroll_offsets: bool):
-    """One x-plane of the frozen-bin NDT terms pass.
-
-    scal_ref  (1, 24) SMEM: [T row-major (12), pad, gamma, maxd^2] + pad
-    flags_ref (1, Wx) SMEM: per-plane any-point flags — a plane whose
-              raster holds no valid point contributes nothing, so its
-              entire 27-neighborhood accumulation is skipped (street scans
-              leave ~30% of fine-window planes and most far-tier planes
-              empty; the kernel is VPU-bound, so skipped compute is pure
-              win while the pipeline still streams the blocks)
-    raster_ref (1, 4Q, 8, L8): source-frame points of this plane's cells
-    rm/r0/rp  (1, 16, 8, L8): field planes x-1, x, x+1 (edge-clamped)
-    out_ref   (8, 32) SMEM: row i%8 = [H triu (21), b (6), cost, matched]
-    """
-    i = pl.program_id(0)
-    row0 = jax.lax.rem(i, 8)
-
-    @pl.when(flags_ref[0, i] == 0)
-    def _skip():
-        for idx in range(32):
-            out_ref[row0, idx] = 0.0
-
-    @pl.when(flags_ref[0, i] != 0)
-    def _compute():
-        _terms_plane_body(scal_ref, raster_ref, rm_ref, r0_ref, rp_ref,
-                          out_ref, i, q_cap=q_cap, wy=wy, wz=wz,
-                          n_wx=n_wx, unroll_offsets=unroll_offsets)
-
-
-def _terms_plane_body(scal_ref, raster_ref, rm_ref, r0_ref, rp_ref, out_ref,
-                      i, *, q_cap: int, wy: int, wz: int, n_wx: int,
-                      unroll_offsets: bool):
-    wz8 = wz // 8
-    l8 = wy * wz8
-    t00, t01, t02, t03 = (scal_ref[0, 0], scal_ref[0, 1], scal_ref[0, 2],
-                          scal_ref[0, 3])
-    t10, t11, t12, t13 = (scal_ref[0, 4], scal_ref[0, 5], scal_ref[0, 6],
-                          scal_ref[0, 7])
-    t20, t21, t22, t23 = (scal_ref[0, 8], scal_ref[0, 9], scal_ref[0, 10],
-                          scal_ref[0, 11])
-    inv_2g = scal_ref[0, 16]          # 1 / (2 * gamma)
-    maxd2 = scal_ref[0, 17]
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (8, l8), 1)
-    sub = jax.lax.broadcasted_iota(jnp.int32, (8, l8), 0)
-    z8 = jax.lax.rem(lane, wz8)
-    z_i = z8 * 8 + sub
-    y_i = lane // wz8
-
-    # transformed points, per sub-slot q: p' = R p + t
-    pxs, pys, pzs, pws = [], [], [], []
-    for q in range(q_cap):
-        px = raster_ref[0, q]
-        py = raster_ref[0, q_cap + q]
-        pz = raster_ref[0, 2 * q_cap + q]
-        pxs.append(t00 * px + t01 * py + t02 * pz + t03)
-        pys.append(t10 * px + t11 * py + t12 * pz + t13)
-        pzs.append(t20 * px + t21 * py + t22 * pz + t23)
-        pws.append(raster_ref[0, 3 * q_cap + q])
-
-    zero = jnp.zeros((8, l8), jnp.float32)
-    # per q: [y0 y1 y2 c00 c01 c02 c11 c12 c22 s m]
-    acc = [zero] * (q_cap * 11)
-
-    def offset_body(k, acc, xref, ok_x):
-        # k in [0, 9): dy = k//3 - 1, dz = k%3 - 1 (python or traced)
-        if isinstance(k, int):
-            dy, dz = k // 3 - 1, k % 3 - 1
-        else:
-            dy = k // 3 - 1
-            dz = jax.lax.rem(k, 3) - 1
-        ch = [_shift_zy(xref[0, c], dz, dy, wz8, sub) for c in range(10)]
-        ok_yz = ((z_i + dz >= 0) & (z_i + dz < wz)
-                 & (y_i + dy >= 0) & (y_i + dy < wy))
-        okd = ok_yz & ok_x & (ch[9] > 0.5)
-        mu0, mu1, mu2 = ch[0], ch[1], ch[2]
-        l00, l01, l02 = ch[3], ch[4], ch[5]
-        l11, l12, l22 = ch[6], ch[7], ch[8]
-        out = list(acc)
-        for q in range(q_cap):
-            r0 = pxs[q] - mu0
-            r1 = pys[q] - mu1
-            r2 = pzs[q] - mu2
-            q0 = l00 * r0 + l01 * r1 + l02 * r2
-            q1 = l01 * r0 + l11 * r1 + l12 * r2
-            q2 = l02 * r0 + l12 * r1 + l22 * r2
-            d2 = q0 * r0 + q1 * r1 + q2 * r2
-            de2 = r0 * r0 + r1 * r1 + r2 * r2
-            gate = okd & (de2 < maxd2) & (pws[q] > 0.5)
-            s = jnp.where(
-                gate, jnp.exp(-jnp.minimum(d2 * inv_2g, 30.0)), 0.0)
-            o = 11 * q
-            out[o + 0] = out[o + 0] + s * q0
-            out[o + 1] = out[o + 1] + s * q1
-            out[o + 2] = out[o + 2] + s * q2
-            out[o + 3] = out[o + 3] + s * l00
-            out[o + 4] = out[o + 4] + s * l01
-            out[o + 5] = out[o + 5] + s * l02
-            out[o + 6] = out[o + 6] + s * l11
-            out[o + 7] = out[o + 7] + s * l12
-            out[o + 8] = out[o + 8] + s * l22
-            out[o + 9] = out[o + 9] + s
-            out[o + 10] = jnp.maximum(out[o + 10],
-                                      gate.astype(jnp.float32))
-        return tuple(out)
-
-    acc = tuple(acc)
-    for xref, ok_x in ((rm_ref, i > 0), (r0_ref, jnp.full((), True)),
-                       (rp_ref, i < n_wx - 1)):
-        if unroll_offsets:
-            # static shifts: ~1 Mosaic instruction per vreg per roll.
-            # Hardware-only — the interpret path inlines every grid step,
-            # where a 27x-unrolled body makes test graphs explode.
-            for k in range(9):
-                acc = offset_body(k, acc, xref, ok_x)
-        else:
-            acc = jax.lax.fori_loop(
-                0, 9, functools.partial(offset_body, xref=xref, ok_x=ok_x),
-                acc)
-
-    # per-slot J-products, reduced over the plane.  The neighbor sum
-    # factorizes through the point: H_slot = J(p)^T (sum_k s Lambda) J(p),
-    # b_slot = J(p)^T (sum_k s Lambda r) — so only 11 accumulators per q
-    # survive the 27-neighbor loop, and the 6x6 expansion runs once.
-    h = [zero] * 21   # upper triangle, row-major: (0,0)..(0,5),(1,1)..(5,5)
-    b = [zero] * 6
-    cost = zero
-    matched = zero
-
-    def tri(i_, j_):
-        return i_ * 6 - i_ * (i_ + 1) // 2 + j_
-
-    for q in range(q_cap):
-        y0, y1, y2 = acc[11 * q + 0], acc[11 * q + 1], acc[11 * q + 2]
-        c00, c01, c02 = acc[11 * q + 3], acc[11 * q + 4], acc[11 * q + 5]
-        c11, c12, c22 = acc[11 * q + 6], acc[11 * q + 7], acc[11 * q + 8]
-        px, py, pz = pxs[q], pys[q], pzs[q]
-        b[0] += y0
-        b[1] += y1
-        b[2] += y2
-        # p x y
-        b[3] += py * y2 - pz * y1
-        b[4] += pz * y0 - px * y2
-        b[5] += px * y1 - py * y0
-        # H_tt = L
-        h[tri(0, 0)] += c00
-        h[tri(0, 1)] += c01
-        h[tri(0, 2)] += c02
-        h[tri(1, 1)] += c11
-        h[tri(1, 2)] += c12
-        h[tri(2, 2)] += c22
-        # M = L hat(p): hat(p) = [[0,-pz,py],[pz,0,-px],[-py,px,0]]
-        m00 = c01 * pz - c02 * py
-        m01 = -c00 * pz + c02 * px
-        m02 = c00 * py - c01 * px
-        m10 = c11 * pz - c12 * py
-        m11 = -c01 * pz + c12 * px
-        m12 = c01 * py - c11 * px
-        m20 = c12 * pz - c22 * py
-        m21 = -c02 * pz + c22 * px
-        m22 = c02 * py - c12 * px
-        # H_tr = -M
-        h[tri(0, 3)] += -m00
-        h[tri(0, 4)] += -m01
-        h[tri(0, 5)] += -m02
-        h[tri(1, 3)] += -m10
-        h[tri(1, 4)] += -m11
-        h[tri(1, 5)] += -m12
-        h[tri(2, 3)] += -m20
-        h[tri(2, 4)] += -m21
-        h[tri(2, 5)] += -m22
-        # H_rr = hat^T L hat = -hat(p) M
-        h[tri(3, 3)] += -(-pz * m10 + py * m20)
-        h[tri(3, 4)] += -(-pz * m11 + py * m21)
-        h[tri(3, 5)] += -(-pz * m12 + py * m22)
-        h[tri(4, 4)] += -(pz * m01 - px * m21)
-        h[tri(4, 5)] += -(pz * m02 - px * m22)
-        h[tri(5, 5)] += -(-py * m02 + px * m12)
-        cost += acc[11 * q + 9]
-        matched += acc[11 * q + 10]
-
-    # scalar SMEM stores (the sanctioned reduce-to-scalar pattern); the
-    # (8, 32) output block is shared by 8 consecutive planes, each writing
-    # its own sublane
-    row = jax.lax.rem(i, 8)
-    vals = h + b + [cost, matched]
-    for idx, v in enumerate(vals):
-        out_ref[row, idx] = jnp.sum(v)
-    for idx in range(len(vals), 32):
-        out_ref[row, idx] = 0.0
-
-
-@functools.partial(jax.jit, static_argnames=("q_cap",))
-def raster_plane_flags(raster: jax.Array, q_cap: int) -> jax.Array:
-    """(Wx,) int32 any-valid-point flag per x-plane of a terms raster."""
-    w = raster[:, 3 * q_cap:4 * q_cap]
-    return jnp.any(w > 0.5, axis=(1, 2, 3)).astype(jnp.int32)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("dims", "q_cap", "interpret",
-                                    "owned_planes"))
-def ndt_terms_raster(raster: jax.Array, rows_planes: jax.Array,
-                     T: jax.Array, gamma: jax.Array, max_corr_dist: float,
-                     dims: Tuple[int, int, int], q_cap: int,
-                     interpret: bool = False,
-                     owned_planes: Tuple[int, int] | None = None,
-                     plane_flags: jax.Array | None = None):
-    """Frozen-bin NDT terms pass (Pallas).
-
-    Returns (H (6,6), b (6,), cost (), matched_count ()).
-
-    ``owned_planes`` (lo, hi): restrict the matched COUNT to x-planes
-    [lo, hi) — the sharded path bins the scan into halo-extended local
-    windows, so each device counts only points binned in its owned chunk
-    (H/b/cost still sum every plane; cross-chunk (point, Gaussian) pairs
-    are partitioned by Gaussian ownership and psum exactly).
+    The window's cell (0, 0, 0) is lattice cell ``origin_cell`` (default
+    0) of the grid whose cell (0, 0, 0) has its corner at ``grid_origin``.
+    Returns (cells (N, 3) int32, keep (N,) bool). A point is kept when it
+    is valid, inside the window at T0, and among the first ``q_cap``
+    points of its cell in input order; points outside the window or past
+    the per-cell capacity do not enter the objective.
     """
     wx, wy, wz = dims
-    _, _, _, l8 = _split_dims(dims)
-    scal = jnp.concatenate([
-        T[:3].reshape(-1).astype(jnp.float32), jnp.zeros((4,), jnp.float32),
-        jnp.stack([0.5 / jnp.asarray(gamma, jnp.float32),
-                   jnp.float32(max_corr_dist) ** 2]),
-        jnp.zeros((6,), jnp.float32)]).reshape(1, 24)
-    # per-plane any-point flags (one cheap reduction over the weight
-    # channels; XLA streams the raster once — ~30 us against the ~0.4 ms
-    # of skipped VPU work on typical street-scan occupancy). Callers that
-    # evaluate many passes on one frozen raster pass precomputed flags
-    # (raster_plane_flags) to hoist even that.
-    if plane_flags is None:
-        plane_flags = raster_plane_flags(raster, q_cap)
-    flags = plane_flags.reshape(1, wx)
+    if origin_cell is None:
+        origin_cell = jnp.zeros((3,), jnp.int32)
+    cells, cell, rank = cell_ranks(points, mask, T0, grid_origin, leaf,
+                                   dims, q_cap, origin_cell)
+    return cells, (cell < wx * wy * wz) & (rank < q_cap)
 
-    kernel = functools.partial(_terms_kernel, q_cap=q_cap, wy=wy, wz=wz,
-                               n_wx=wx, unroll_offsets=not interpret)
-    out = pl.pallas_call(
-        kernel,
-        grid=(wx,),
-        in_specs=[
-            pl.BlockSpec((1, 24), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, wx), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 4 * q_cap, 8, l8), lambda i: (i, 0, 0, 0)),
-            pl.BlockSpec((1, 16, 8, l8),
-                         lambda i: (jnp.maximum(i - 1, 0), 0, 0, 0)),
-            pl.BlockSpec((1, 16, 8, l8), lambda i: (i, 0, 0, 0)),
-            pl.BlockSpec((1, 16, 8, l8),
-                         lambda i: (jnp.minimum(i + 1, wx - 1), 0, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((8, 32), lambda i: (i // 8, 0),
-                               memory_space=pltpu.SMEM),
-        out_shape=jax.ShapeDtypeStruct((wx, 32), jnp.float32),
-        # the working set (4 double-buffered plane blocks + accumulators)
-        # can exceed the default 16 MiB scoped-vmem budget at W=64; the
-        # chip has far more VMEM, so raise the per-kernel cap
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024),
-        interpret=interpret,
-    )(scal, flags, raster, rows_planes, rows_planes, rows_planes)
 
-    tot = jnp.sum(out, axis=0)                       # (32,)
-    iu0, iu1 = jnp.triu_indices(6)
+# ---------------------------------------------------------------------------
+# The pass
+# ---------------------------------------------------------------------------
+
+def neighbour_index(cells: jax.Array, dims: Dims
+                    ) -> Tuple[jax.Array, jax.Array]:
+    """(N, 27) flat row index of each cell's 3x3x3 neighbours and the
+    (N, 27) per-axis in-window mask; (dx, dy, dz) nested, dz fastest.
+    Out-of-window neighbours get a clamped (valid) index and ok=False."""
+    wx, wy, wz = dims
+    n = cells.shape[0]
+    d3 = jnp.array([-1, 0, 1], jnp.int32)
+    nx = cells[:, 0:1] + d3
+    ny = cells[:, 1:2] + d3
+    nz = cells[:, 2:3] + d3
+    okx = (nx >= 0) & (nx < wx)
+    oky = (ny >= 0) & (ny < wy)
+    okz = (nz >= 0) & (nz < wz)
+    lin = ((nx[:, :, None, None] * wy + ny[:, None, :, None]) * wz
+           + nz[:, None, None, :]).reshape(n, 27)
+    ok = (okx[:, :, None, None] & oky[:, None, :, None]
+          & okz[:, None, None, :]).reshape(n, 27)
+    return jnp.clip(lin, 0, wx * wy * wz - 1), ok
+
+
+def normal_equations(p: jax.Array, y: jax.Array, c: jax.Array
+                     ) -> Tuple[jax.Array, jax.Array]:
+    """H (6,6), b (6,) from per-point factors, J = [I | -hat(p)].
+
+    p (N, 3) transformed points; y (N, 3) = sum_k s Lambda_k r_k;
+    c (N, 6) = upper triangle [00 01 02 11 12 22] of sum_k s Lambda_k.
+    H = sum J^T L J and b = sum J^T y expand in closed form per point,
+    so the whole reduction is one fused elementwise + sum.
+    """
+    px, py, pz = p[:, 0], p[:, 1], p[:, 2]
+    y0, y1, y2 = y[:, 0], y[:, 1], y[:, 2]
+    c00, c01, c02, c11, c12, c22 = (c[:, 0], c[:, 1], c[:, 2], c[:, 3],
+                                    c[:, 4], c[:, 5])
+    # M = L hat(p): hat(p) = [[0,-pz,py],[pz,0,-px],[-py,px,0]]
+    m00 = c01 * pz - c02 * py
+    m01 = -c00 * pz + c02 * px
+    m02 = c00 * py - c01 * px
+    m10 = c11 * pz - c12 * py
+    m11 = -c01 * pz + c12 * px
+    m12 = c01 * py - c11 * px
+    m20 = c12 * pz - c22 * py
+    m21 = -c02 * pz + c22 * px
+    m22 = c02 * py - c12 * px
+    # row-major upper triangle of H: H_tt = L, H_tr = -M, H_rr = -hat(p) M
+    terms = jnp.stack([
+        c00, c01, c02, -m00, -m01, -m02,
+        c11, c12, -m10, -m11, -m12,
+        c22, -m20, -m21, -m22,
+        pz * m10 - py * m20, pz * m11 - py * m21, pz * m12 - py * m22,
+        -pz * m01 + px * m21, -pz * m02 + px * m22,
+        py * m02 - px * m12,
+        y0, y1, y2,
+        py * y2 - pz * y1, pz * y0 - px * y2, px * y1 - py * y0], axis=1)
+    tot = jnp.sum(terms, axis=0)
+    iu0, iu1 = np.triu_indices(6)
     H = jnp.zeros((6, 6), jnp.float32).at[iu0, iu1].set(tot[:21])
     H = H + jnp.triu(H, 1).T
-    b = tot[21:27]
-    cost = -tot[27]
-    if owned_planes is not None:
-        lo, hi = owned_planes
-        matched = jnp.sum(out[lo:hi, 28])
-    else:
-        matched = tot[28]
-    return H, b, cost, matched
+    return H, tot[21:27]
+
+
+@functools.partial(jax.jit, static_argnames=("dims", "owned_x"))
+def ndt_terms(points: jax.Array, cells: jax.Array, keep: jax.Array,
+              rows: jax.Array, T: jax.Array, gamma: jax.Array,
+              max_corr_dist: float, dims: Dims,
+              owned_x: Optional[Tuple[int, int]] = None):
+    """Frozen-bin NDT terms pass at pose T.
+
+    points (N, 3) source frame; (cells, keep) from ``bin_points``; rows
+    (G, 16) field window rows. Returns (H (6,6), b (6,), cost (),
+    matched ()), matched = number of kept points with at least one gated
+    neighbour.
+
+    ``owned_x`` (lo, hi): count only points whose frozen x-cell is in
+    [lo, hi). The sharded path bins the scan into halo-extended local
+    windows, so each device counts only points binned in its owned chunk
+    (H/b/cost still sum every point: cross-chunk (point, Gaussian) pairs
+    are partitioned by Gaussian ownership and psum exactly).
+    """
+    pts = points @ T[:3, :3].T + T[:3, 3]
+    lin, ok = neighbour_index(cells, dims)
+    P = jnp.take(rows, lin, axis=0)                           # (N, 27, 16)
+    mus = P[..., 0:3]
+    l00, l01, l02 = P[..., 3], P[..., 4], P[..., 5]
+    l11, l12, l22 = P[..., 6], P[..., 7], P[..., 8]
+    r = pts[:, None, :] - mus
+    r0, r1, r2 = r[..., 0], r[..., 1], r[..., 2]
+    q0 = l00 * r0 + l01 * r1 + l02 * r2
+    q1 = l01 * r0 + l11 * r1 + l12 * r2
+    q2 = l02 * r0 + l12 * r1 + l22 * r2
+    d2 = q0 * r0 + q1 * r1 + q2 * r2
+    de2 = r0 * r0 + r1 * r1 + r2 * r2
+    gate = (ok & keep[:, None] & (P[..., 9] > 0.5)
+            & (de2 < jnp.float32(max_corr_dist) ** 2))
+    inv_2g = 0.5 / jnp.asarray(gamma, jnp.float32)
+    s = jnp.where(gate, jnp.exp(-jnp.minimum(d2 * inv_2g, 30.0)), 0.0)
+    y = jnp.stack([jnp.sum(s * q0, 1), jnp.sum(s * q1, 1),
+                   jnp.sum(s * q2, 1)], axis=1)
+    c = jnp.stack([jnp.sum(s * l, 1) for l in (l00, l01, l02, l11, l12,
+                                                l22)], axis=1)
+    H, b = normal_equations(pts, y, c)
+    matched = jnp.any(gate, axis=1)
+    if owned_x is not None:
+        lo, hi = owned_x
+        matched = matched & (cells[:, 0] >= lo) & (cells[:, 0] < hi)
+    return H, b, -jnp.sum(s), jnp.sum(matched.astype(jnp.float32))
+
+
+def terms_pass(impl: str = "auto"):
+    """The frozen-bin terms pass by name: 'xla' (ndt_terms), 'triton'
+    (kernels.ndt_terms_triton, GPU only) or 'auto' (the Triton kernel on a
+    GPU — measured faster end to end on the H100, PERF.md — and the XLA
+    pass elsewhere); all share ndt_terms' contract."""
+    if impl == "auto":
+        impl = "triton" if jax.default_backend() == "gpu" else "xla"
+    if impl == "xla":
+        return ndt_terms
+    if impl == "triton":
+        from tpu_slam.kernels.ndt_terms_triton import ndt_terms_triton
+        return ndt_terms_triton
+    raise ValueError(f"unknown terms_impl {impl!r} "
+                     "(use 'auto', 'xla' or 'triton')")
 
 
 # ---------------------------------------------------------------------------
-# XLA reference of the SAME frozen-bin objective (CPU fallback + tests)
+# Plain float64 reference (tests and the on-card parity check)
 # ---------------------------------------------------------------------------
 
-def raster_to_slots(raster: jax.Array, dims: Tuple[int, int, int],
-                    q_cap: int) -> jax.Array:
-    """Kernel raster (Wx, 4Q, 8, L8) -> (G*Q, 4) x-major slot rows."""
+def bin_points_reference(points, mask, T0, grid_origin, leaf, dims, q_cap,
+                         origin_cell=(0, 0, 0)):
+    """numpy statement of bin_points: (cells (N,3) int64, keep (N,))."""
+    points = np.asarray(points, np.float64)
+    T0 = np.asarray(T0, np.float64)
+    pw = points @ T0[:3, :3].T + T0[:3, 3]
+    rel = (pw - np.asarray(grid_origin, np.float64)) / leaf
+    cells = np.floor(np.clip(rel, -2.0 ** 24, 2.0 ** 24)).astype(np.int64)
+    cells = np.clip(cells - np.asarray(origin_cell), -1, np.asarray(dims))
+    inside = (np.asarray(mask, bool)
+              & np.all((cells >= 0) & (cells < np.asarray(dims)), axis=1))
+    keep = np.zeros(len(points), bool)
+    seen = {}
+    for i in np.flatnonzero(inside):
+        key = tuple(cells[i])
+        seen[key] = seen.get(key, 0) + 1
+        keep[i] = seen[key] <= q_cap
+    return cells, keep
+
+
+def ndt_terms_reference(points, cells, keep, rows, T, gamma, max_corr_dist,
+                        dims):
+    """float64 numpy frozen-bin NDT terms: (H, b, cost, matched)."""
     wx, wy, wz = dims
-    _, _, wz8, _ = _split_dims(dims)
-    g = wx * wy * wz
-    r = raster.reshape(wx, 4, q_cap, 8, wy, wz8)
-    # (x, c, q, s, y, z8) -> (x, y, z8, s, q, c); z = z8*8 + s
-    r = jnp.transpose(r, (0, 4, 5, 3, 2, 1))
-    return r.reshape(g * q_cap, 4)
-
-
-def ndt_terms_raster_reference(raster: jax.Array, rows_planes: jax.Array,
-                               T: jax.Array, gamma: jax.Array,
-                               max_corr_dist: float,
-                               dims: Tuple[int, int, int], q_cap: int):
-    """Dense XLA implementation of ndt_terms_raster (bit-comparable)."""
-    wx, wy, wz = dims
-    _, _, wz8, l8 = _split_dims(dims)
-    g = wx * wy * wz
-    ra = raster_to_slots(raster, dims, q_cap)
-    pts = ra[:, :3] @ T[:3, :3].T + T[:3, 3]
-    w = ra[:, 3]
-    # planes (Wx, 16, 8, L8) -> (G, 16) x-major rows
-    rp = rows_planes.reshape(wx, 16, 8, wy, wz8)
-    rows = jnp.transpose(rp, (0, 3, 4, 2, 1)).reshape(g, 16)
-
-    cell = jnp.arange(g * q_cap, dtype=jnp.int32) // q_cap
-    cx = cell // (wy * wz)
-    cy = (cell // wz) % wy
-    cz = cell % wz
-
-    H = jnp.zeros((6, 6), jnp.float32)
-    b = jnp.zeros((6,), jnp.float32)
-    ssum = jnp.zeros((), jnp.float32)
-    matched = jnp.zeros((g * q_cap,), jnp.float32)
-
-    n = g * q_cap
-    phat = jnp.stack([
-        jnp.stack([jnp.zeros(n), -pts[:, 2], pts[:, 1]], -1),
-        jnp.stack([pts[:, 2], jnp.zeros(n), -pts[:, 0]], -1),
-        jnp.stack([-pts[:, 1], pts[:, 0], jnp.zeros(n)], -1)], -2)
-    J = jnp.concatenate(
-        [jnp.broadcast_to(jnp.eye(3, dtype=jnp.float32), (n, 3, 3)),
-         -phat], axis=2)
-
+    pts = np.asarray(points, np.float64)
+    T = np.asarray(T, np.float64)
+    rows = np.asarray(rows, np.float64)
+    cells = np.asarray(cells)
+    keep = np.asarray(keep, bool)
+    p = pts @ T[:3, :3].T + T[:3, 3]
+    n = len(p)
+    L = np.zeros((n, 3, 3))
+    y = np.zeros((n, 3))
+    ssum = 0.0
+    matched = np.zeros(n, bool)
     for dx in (-1, 0, 1):
         for dy in (-1, 0, 1):
             for dz in (-1, 0, 1):
-                nx, ny, nz = cx + dx, cy + dy, cz + dz
-                ok = ((nx >= 0) & (nx < wx) & (ny >= 0) & (ny < wy)
-                      & (nz >= 0) & (nz < wz))
-                ncell = jnp.clip((nx * wy + ny) * wz + nz, 0, g - 1)
-                R = jnp.take(rows, ncell, axis=0)
-                mu = R[:, 0:3]
-                l00, l01, l02 = R[:, 3], R[:, 4], R[:, 5]
-                l11, l12, l22 = R[:, 6], R[:, 7], R[:, 8]
-                ok = ok & (R[:, 9] > 0.5) & (w > 0.5)
-                r = pts - mu
-                r0, r1, r2 = r[:, 0], r[:, 1], r[:, 2]
-                q0 = l00 * r0 + l01 * r1 + l02 * r2
-                q1 = l01 * r0 + l11 * r1 + l12 * r2
-                q2 = l02 * r0 + l12 * r1 + l22 * r2
-                d2 = q0 * r0 + q1 * r1 + q2 * r2
-                de2 = r0 * r0 + r1 * r1 + r2 * r2
-                gate = ok & (de2 < max_corr_dist ** 2)
-                s = jnp.where(gate,
-                              jnp.exp(-jnp.minimum(d2 / (2.0 * gamma),
-                                                   30.0)), 0.0)
-                y = jnp.stack([s * q0, s * q1, s * q2], axis=1)
-                lam = jnp.stack([
-                    jnp.stack([l00, l01, l02], -1),
-                    jnp.stack([l01, l11, l12], -1),
-                    jnp.stack([l02, l12, l22], -1)], -2)
-                H += jnp.einsum("nia,n,nij,njb->ab", J, s, lam, J)
-                b += jnp.einsum("nia,ni->a", J, y)
-                ssum += jnp.sum(s)
-                matched = jnp.maximum(matched, gate.astype(jnp.float32))
-
-    return H, b, -ssum, jnp.sum(matched)
+                nb = cells + np.array([dx, dy, dz])
+                ok = keep & np.all((nb >= 0) & (nb < np.asarray(dims)),
+                                   axis=1)
+                lin = np.where(ok, (nb[:, 0] * wy + nb[:, 1]) * wz
+                               + nb[:, 2], 0)
+                R = rows[lin]
+                lam = np.empty((n, 3, 3))
+                for (i, j), ch in zip(((0, 0), (0, 1), (0, 2), (1, 1),
+                                       (1, 2), (2, 2)), range(3, 9)):
+                    lam[:, i, j] = lam[:, j, i] = R[:, ch]
+                r = p - R[:, 0:3]
+                lr = np.einsum("nij,nj->ni", lam, r)
+                d2 = np.einsum("ni,ni->n", r, lr)
+                gate = (ok & (R[:, 9] > 0.5)
+                        & (np.sum(r * r, axis=1) < max_corr_dist ** 2))
+                s = np.where(gate, np.exp(-np.minimum(d2 / (2.0 * gamma),
+                                                      30.0)), 0.0)
+                L += s[:, None, None] * lam
+                y += s[:, None] * lr
+                ssum += s.sum()
+                matched |= gate
+    J = np.zeros((n, 3, 6))
+    J[:, :, :3] = np.eye(3)
+    hat = np.zeros((n, 3, 3))
+    hat[:, 0, 1], hat[:, 0, 2] = -p[:, 2], p[:, 1]
+    hat[:, 1, 0], hat[:, 1, 2] = p[:, 2], -p[:, 0]
+    hat[:, 2, 0], hat[:, 2, 1] = -p[:, 1], p[:, 0]
+    J[:, :, 3:] = -hat
+    H = np.einsum("nia,nij,njb->ab", J, L, J)
+    b = np.einsum("nia,ni->a", J, y)
+    return H, b, -ssum, int(matched.sum())

@@ -1,6 +1,6 @@
 """Device-resident voxel mapping.
 
-TPU-native replacement for the reference SLAM core's GPU voxel/occupancy map
+Replacement for the reference SLAM core's GPU voxel/occupancy map
 structures (SURVEY.md §2.2, BASELINE.json north_star). The map is a sorted
 array of occupied voxels with Gaussian statistics — no pointers, no host
 hash maps; updates are merge-sorts and lookups are binary searches, all

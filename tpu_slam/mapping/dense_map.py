@@ -1,11 +1,10 @@
 """Window-resident dense moment grid — the odometry-rate map structure.
 
 The sorted sparse voxel map (mapping.voxel_map) is the right global archive
-but the wrong per-scan write target on TPU: merging a scan into it re-sorts
-or gathers capacity-sized (C,3,3) payloads every scan (measured 112-250 ms
-per insert on v5e at C >= 262k, rounds 2-3).  Registration meanwhile only
-ever *reads* Gaussians inside a sensor-centered window (registration.ndt
-builds a dense plane tensor for exactly that region).  So the odometry-rate
+but the wrong per-scan write target: merging a scan into it re-sorts or
+gathers capacity-sized (C,3,3) payloads every scan.  Registration meanwhile
+only ever *reads* Gaussians inside a sensor-centered window (registration.ndt
+builds dense field rows for exactly that region).  So the odometry-rate
 structure IS the window, kept dense:
 
   * ``rows`` (G, 10) float32 per-cell moments [n, s(3), outer-triu(6)],
@@ -14,9 +13,8 @@ structure IS the window, kept dense:
   * ``origin_cell`` (3,) int32 places window cell (0,0,0) on the GLOBAL
     cell lattice of a VoxelGridSpec — a traced value, so the window
     scrolls with the sensor without recompilation;
-  * insert = bin the scan by cell (sort + segment-sum, the primitives the
-    chip is fast at) + ONE unique-index scatter-add — no capacity-sized
-    sort or gather anywhere;
+  * insert = bin the scan by cell (sort + segment-sum) + ONE unique-index
+    scatter-add — no capacity-sized sort or gather anywhere;
   * the NDT field build skips the sparse->dense scatter entirely: three
     separable 3x3x3 moment passes + closed-form floored inverses straight
     on the grid (the math of registration.ndt._ndt_field_dense);
@@ -99,9 +97,8 @@ def grid_insert(grid: DenseMomentGrid, cloud: PointCloud,
     branch-free reject path of the jitted odometry step).  Points outside
     the window are dropped — the window is the odometry map.
 
-    Cost model (v5e, 131k-capacity cloud, 160x160x32 window): one argsort
-    on int32 keys + takes + 10-channel segment-sum + one unique-index
-    scatter-add; no (C, 3, 3) payload sorts.
+    Work: one argsort on int32 keys + takes + 10-channel segment-sum + one
+    unique-index scatter-add; no (C, 3, 3) payload sorts.
     """
     wx, wy, wz = grid.dims
     g = wx * wy * wz
@@ -337,16 +334,15 @@ def grid_coarsen(grid: DenseMomentGrid, spec: VoxelGridSpec,
 def grid_ndt_field(grid: DenseMomentGrid, spec: VoxelGridSpec,
                    min_voxel_count: float = 5.0,
                    evec_floor_ratio: float = 0.01):
-    """NDT plane tensor straight from the window moments.
+    """NDT field rows straight from the window moments.
 
-    Returns a planes-only registration.ndt.NDTField (Pallas raster path):
-    three separable 3x3x3 moment-aggregation passes, closed-form floored
-    inverses, channel-major plane transpose.  No sparse scatter — the
-    window IS the map.  ``spec`` must be the lattice the grid lives on
-    (pass the coarse spec for a coarsened grid).
+    Returns a rows-only registration.ndt.NDTField (the frozen-bin terms
+    path): three separable 3x3x3 moment-aggregation passes and
+    closed-form floored inverses into x-major (G, 16) rows.  No sparse
+    scatter — the window IS the map.  ``spec`` must be the lattice the
+    grid lives on (pass the coarse spec for a coarsened grid).
     """
     from tpu_slam.core.sym3 import floored_info_sym3_tri
-    from tpu_slam.kernels.ndt_terms import rows_to_planes
     from tpu_slam.registration.ndt import NDTField, _nbr_moment_pass
 
     wx, wy, wz = grid.dims
@@ -379,10 +375,9 @@ def grid_ndt_field(grid: DenseMomentGrid, spec: VoxelGridSpec,
         + [valid[:, None].astype(jnp.float32),
            jnp.zeros((g, 6), jnp.float32)], axis=1)
     rows16 = jnp.where(valid[:, None], rows16, 0.0)
-    planes = rows_to_planes(rows16, grid.dims)
     return NDTField(keys=jnp.zeros((1,), jnp.int32), means=None, info=None,
                     valid=None, lookup=None, packed=None, nbr_rows=None,
-                    planes=planes, origin_cell=grid.origin_cell,
+                    rows=rows16, origin_cell=grid.origin_cell,
                     window_dims=grid.dims)
 
 

@@ -6,7 +6,7 @@ presence; this module adds free-space evidence: ray traversal as a
 fixed-step sampling kernel (no per-ray loops — one (N_rays, S) lattice of
 sample points, keys, and a segment reduction), with log-odds per voxel.
 
-Sampling instead of exact DDA traversal is the TPU-idiomatic choice: a
+Sampling instead of exact DDA traversal is the static-shape choice: a
 regular (rays x steps) grid of FMAs and gathers, no data-dependent
 control flow. Step = leaf/2 guarantees every traversed voxel is sampled
 at least once (at the cost of duplicate samples, which the max-reduction

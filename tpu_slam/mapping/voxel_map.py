@@ -1,7 +1,7 @@
 """Sorted-voxel-list map with per-voxel Gaussian statistics.
 
 The reference's missing CUDA core kept GPU voxel structures for NDT matching
-and occupancy (SURVEY.md §2.2). The TPU-native design avoids device hash
+and occupancy (SURVEY.md §2.2). This design avoids device hash
 tables with pointers entirely:
 
   * the map is a fixed-capacity array of voxels **sorted by packed cell
@@ -195,15 +195,13 @@ def insert_scan_stats_incremental(vmap: VoxelMap, keys: jax.Array,
     """Incremental merge: in-place accumulate hits, gather-merge new keys.
 
     The full merge (insert_scan_stats) re-sorts capacity+scan keys with the
-    whole moment payload every scan — measured 112.8 ms/scan on v5e at
-    262k+65k (round-2 bench), almost all of it in erratic XLA sort/gather
-    paths. A scan only touches ~1-2k voxels, so this path does the minimal
-    work instead, built ONLY from primitives that measured fast and stable
-    on the chip (searchsorted, sub-132k-index takes, dense elementwise):
+    whole moment payload every scan. A scan only touches ~1-2k voxels, so
+    this path does the minimal work instead, built only from searchsorted,
+    small takes and dense elementwise ops:
 
       1. hits: binary-search each map key in the (sorted, compacted) scan
          aggregates; accumulate moments with a DENSE masked add — no
-         scatter (XLA scatters measured 0.03..9 ms run-to-run);
+         scatter;
       2. new keys: compact the first ``new_cap`` misses, then MERGE BY
          GATHER — for output slot k, count new keys placed at or before k
          via searchsorted and select from either the old map or the new

@@ -1,6 +1,6 @@
 """End-to-end pipelines: odometry and full 6D SLAM.
 
-The TPU-native stand-in for the reference's gpu_6dslam_node (SURVEY.md §1
+The stand-in for the reference's gpu_6dslam_node (SURVEY.md §1
 L6): consumes the aggregated-cloud stream (ingest/), maintains pose + map
 on device, closes loops and optimizes the pose graph (graph/).
 """

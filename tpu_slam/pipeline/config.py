@@ -35,8 +35,8 @@ class OdometryConfig:
                                         # keep every ray)
     insert_downsampled: bool = False    # dense engine: integrate the
                                         # downsampled scan instead of the
-                                        # raw cloud (ds insert 2.9 ms vs
-                                        # raw 12.4 ms on v5e; 27-cell
+                                        # raw cloud (a fraction of the
+                                        # insert work; 27-cell
                                         # neighborhood aggregation keeps
                                         # the Gaussians well-supported)
 

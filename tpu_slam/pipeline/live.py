@@ -176,8 +176,8 @@ class LivePipeline:
             target=self._produce, args=(lms, feeder, angle_source, max_lines),
             daemon=True)
         # warm up the jitted accumulation BEFORE the stream opens: the
-        # first compile takes tens of seconds on a remote-attached TPU,
-        # during which the feeder ring would overflow and drop real lines
+        # first compile takes seconds, during which the feeder ring would
+        # overflow and drop real lines
         warm = self.aggregator.init_state()
         L = cfg.line_capacity
         warm = self.aggregator.add_line(

@@ -263,9 +263,9 @@ class LidarOdometry:
 
             # ONE device->host sync per scan: every gating decision reads
             # from this batch (scattered float() syncs each pay a full
-            # dispatch round-trip — the dominant per-scan cost on remote-
-            # attached TPUs). T / init_T are map-local here; the relative
-            # delta is frame-invariant (the offset is a pure translation).
+            # device->host round-trip). T / init_T are map-local here; the
+            # relative delta is frame-invariant (the offset is a pure
+            # translation).
             delta_reg = se3.inverse(pose_loc) @ T
             xi_reg = se3.log(delta_reg)
             stats = np.asarray(jnp.concatenate([

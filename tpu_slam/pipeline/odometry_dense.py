@@ -1,14 +1,13 @@
 """Dense-window odometry: the whole per-scan update as ONE device program.
 
-The round-3 odometry spent 250 ms/scan merging scans into the sparse
-voxel map and 30 ms rebuilding the NDT field from it — 18x and 2x the
-14 ms register step (VERDICT.md r3).  This engine removes both: the
-odometry-rate map IS a scrolling dense moment window
+Merging every scan into the sparse voxel map and rebuilding the NDT field
+from it cost far more than the registration itself.  This engine removes
+both: the odometry-rate map IS a scrolling dense moment window
 (mapping.dense_map.DenseMomentGrid), so
 
-  * insert      = segment-sum + one unique scatter-add   (~3 ms),
-  * field build = three shift-add passes + inverses      (~8 ms),
-  * coarse pyramid = block-sum of the same moments       (~1 ms),
+  * insert      = segment-sum + one unique scatter-add,
+  * field build = three shift-add passes + inverses,
+  * coarse pyramid = block-sum of the same moments,
 
 and the entire step — scroll, coarse+fine NDT register, gating, insert —
 is a single donated-state jit dispatch.  Run it synchronously for
@@ -101,10 +100,8 @@ class DenseLidarOdometry:
             coarse_iterations=max(2, cfg.ndt.coarse_iterations),
             max_corr_dist=cfg.ndt.max_corr_dist * f,
             # the coarse stage registers a coarser-downsampled scan (see
-            # _step_impl) so ~2x raster capacity absorbs the per-cell
-            # occupancy; raising Q directly instead (e.g. f^2 x) unrolls
-            # Q x 27 accumulator sets in the Pallas kernel and explodes
-            # the Mosaic compile
+            # _step_impl) so ~2x per-cell capacity absorbs the per-cell
+            # occupancy
             raster_q=min(8, cfg.ndt.raster_q * 2),
             # yaw search at the coarse level: turns are the one motion the
             # constant-velocity prediction misses on their first scan

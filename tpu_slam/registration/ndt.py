@@ -1,6 +1,6 @@
 """NDT (normal-distributions transform) scan-to-map registration.
 
-TPU-native replacement for the reference core's CUDA NDT voxel matching
+Replacement for the reference core's CUDA NDT voxel matching
 (SURVEY.md §2.2). Point-to-distribution NDT: each map voxel holds a Gaussian
 (mapping.voxel_map moments); each source point is scored against the best
 cell in its 3x3x3 neighborhood; the pose is solved by Gauss-Newton on SE(3)
@@ -9,10 +9,12 @@ with per-point 3x3 information matrices:
     r_i = p_i - mu(cell_i)            J_i = [I | -hat(p_i)]
     H  = sum J_i^T Lambda_i J_i       b  = sum J_i^T Lambda_i r_i
 
-All correspondence work is gathers over the sorted voxel list (binary
-search + 27-neighbor probe, the grid-decomposition pattern of the CUDA
-original) and the reduction is one einsum — MXU-friendly, no dynamic shapes,
-`lax.while_loop` outer iterations.
+All correspondence work is per-point gathers of the 27-neighbor cells
+(over the sorted voxel list, a dense lookup table, or a dense field window
+— the grid-decomposition pattern of the CUDA original), and the reduction
+is one fused sum; no dynamic shapes, `lax.while_loop` outer iterations.
+Dense-window fields (``window_dims``) run the frozen-bin point-major pass
+of kernels.ndt_terms.
 
 Eigenvalue flooring follows standard NDT conditioning (Magnusson 2009):
 covariance eigenvalues are clamped below at ``evec_floor_ratio`` times the
@@ -69,13 +71,9 @@ class NDTParams:
                                      # for large inter-scan motion (outdoor)
     dense_lookup_max_bits: int = 24  # materialize the cell->slot table when
                                      # 3*dim_bits <= this (2^24 = 64 MB max)
-    pack_budget_mb: int = 512        # HBM budget for the neighbor-packed row
-                                     # tables (see NDTField.nbr_rows); 0
-                                     # disables packing entirely
-    pack_any_backend: bool = False   # nbr_rows tables pay off where gathers
-                                     # are index-cost-bound (TPU); by default
-                                     # they are only built there. True forces
-                                     # building on any backend (CPU tests).
+    pack_budget_mb: int = 0          # device-memory budget for the
+                                     # neighbor-packed row tables (see
+                                     # NDTField.nbr_rows); 0 disables packing
     window_bits: int = 6             # dense-field window size: 2^window_bits
                                      # cells per axis, centered on the scan
                                      # (see _ndt_field_dense). 0 disables the
@@ -86,16 +84,15 @@ class NDTParams:
                                      # Outdoor maps are flat: (128, 128, 32)
                                      # at 0.5 m leaf covers +-32 m of range
                                      # for the cell count of a 69^3 cube.
-                                     # Pallas terms path only (Wx, Wz
-                                     # multiples of 8).
-    terms_impl: str = "auto"         # terms-pass backend: 'auto' (Pallas on
-                                     # TPU, XLA gathers elsewhere), 'xla',
-                                     # 'pallas', 'pallas_interpret' (tests)
-    raster_q: int = 4                # per-cell point capacity of the terms
-                                     # raster (kernels.ndt_terms); cells with
-                                     # more downsampled points than this drop
-                                     # the excess from the objective
-    yaw_candidates: int = 0          # kernel path: before the coarse stage,
+                                     # Selects the frozen-bin terms pass
+                                     # (kernels.ndt_terms).
+    terms_impl: str = "auto"         # frozen-bin pass: 'auto', 'xla' or
+                                     # 'triton' (kernels.ndt_terms.terms_pass)
+    raster_q: int = 4                # per-cell point capacity of the frozen
+                                     # bins (kernels.ndt_terms.bin_points);
+                                     # cells with more downsampled points than
+                                     # this drop the excess from the objective
+    yaw_candidates: int = 0          # window path: before the coarse stage,
                                      # evaluate the coarse objective at this
                                      # many yaw offsets in +-yaw_span about
                                      # the init's heading and start from the
@@ -107,8 +104,7 @@ class NDTParams:
                                      # the r4 city arc lock-in; cost at the
                                      # true pose was 2.3x better but
                                      # unreachable by descent). One bin +
-                                     # one pass per candidate — ~0.1 ms
-                                     # each at coarse window sizes.
+                                     # one pass per candidate.
     yaw_span: float = 0.3            # half-range of the yaw search (rad)
     motion_prior_weight: float = 0.0  # weak prior pulling the solve toward
                                      # its INIT pose (the constant-velocity
@@ -124,7 +120,7 @@ class NDTParams:
                                      # holds the predicted velocity in
                                      # flat directions while thousands of
                                      # data terms dominate observable ones.
-    rebin_iters: int = 4             # kernel path: re-bin the raster every
+    rebin_iters: int = 4             # window path: re-bin the scan every
                                      # this many fine LM iterations (the
                                      # coarse stage re-bins EVERY iteration).
                                      # Frozen bins are translation-tolerant
@@ -152,35 +148,29 @@ class NDTField:
     valid: jax.Array     # (C,) bool
     # Dense cell->slot table: the packed key IS an index into the cell grid
     # (2^(3*dim_bits) entries), so probes become one gather instead of a
-    # binary search — measured 12.6 ms -> <1 ms per correspondence pass on
-    # v5e at 4k points x 27 cells. None for grids too large to materialize
-    # (ndt_field builds it when 3*dim_bits <= dense_lookup_max_bits).
+    # binary search. None for grids too large to materialize (ndt_field
+    # builds it when 3*dim_bits <= dense_lookup_max_bits).
     lookup: Optional[jax.Array] = None   # (2^(3b),) int32 slot, -1 = empty
     # Packed per-voxel row [mean(3), Lam upper-tri(6), valid(1), pad(6)]:
-    # gathering ONE (C, 16) row costs ~0.36 ms where the separate
-    # (C,3)+(C,3,3)+(C,) gathers cost ~3.5 ms (XLA lowers trailing (3,3)
-    # gathers poorly); the Mahalanobis math then runs lane-wise on (N, 27).
+    # ONE (C, 16) row gather replaces the separate (C,3)+(C,3,3)+(C,)
+    # gathers; the Mahalanobis math then runs lane-wise on (N, 27).
     packed: Optional[jax.Array] = None   # (C, 16) float32
-    # Neighbor-packed dense row table, the fastest probe tier. TPU gather
-    # cost is dominated by the per-INDEX cost (~3-7 ns each, measured on
-    # v5e), not bytes, so the whole 3x3x3 neighborhood is packed into wide
-    # rows of a dense cell-indexed table and fetched with as few indices as
-    # possible per point:
+    # Neighbor-packed dense row table: the whole 3x3x3 neighborhood is
+    # packed into wide rows of a dense cell-indexed table and fetched with
+    # as few gather indices as possible per point:
     #   (G, 144): row g = the 9 (dy,dz) packed rows of cells g+dy*n+dz
     #             -> 3 gather indices per point (one per dx column);
     #   (G, 48):  row g = the 3 dz packed rows of cells g+dz
     #             -> 9 indices per point (one per (dx,dy) column).
-    # Measured per _ndt_terms pass at 4k pts on v5e: 1.27 ms (lookup tier)
-    # -> 0.55 ms (48) -> 0.36 ms (144). Built when the table fits
-    # params.pack_budget_mb; G = 2^(3 window_bits) rows regardless of
-    # occupancy. When the window is smaller than the map grid, cell 0 of the
-    # table is world cell ``origin_cell`` (dynamic — the window follows the
-    # scan without recompilation).
+    # Built when the table fits params.pack_budget_mb; G = 2^(3 window_bits)
+    # rows regardless of occupancy. When the window is smaller than the map
+    # grid, cell 0 of the table is world cell ``origin_cell`` (dynamic — the
+    # window follows the scan without recompilation).
     nbr_rows: Optional[jax.Array] = None  # (G, 144) or (G, 48) float32
-    # Channel-major plane tensor (Wx, 16, Wy*Wz) for the Pallas raster-terms
-    # kernel (kernels.ndt_terms) — built instead of nbr_rows when the
-    # Pallas path is active; ~9x smaller than the tier-9 pack.
-    planes: Optional[jax.Array] = None
+    # Dense window rows (G, 16) x-major [mean(3), Lam upper-tri(6),
+    # valid(1), pad(6)] for the frozen-bin terms pass (kernels.ndt_terms);
+    # the field of a rectangular ``window_dims`` window.
+    rows: Optional[jax.Array] = None
     origin_cell: Optional[jax.Array] = None  # (3,) int32; None = grid corner
     # Static window shape (Wx, Wy, Wz) of nbr_rows. None = cube inferred
     # from the row count (the single-chip build). The sharded build uses
@@ -220,13 +210,11 @@ def ndt_field(vmap: VoxelMap, spec: VoxelGridSpec,
     """
     wb = min(spec.dim_bits, params.window_bits)
     if params.window_dims is not None:
-        if not (_use_pallas(params) and params.use_neighborhood):
-            raise ValueError("rectangular window_dims requires the Pallas "
-                             "terms path (terms_impl pallas/auto-on-TPU) "
-                             "and use_neighborhood")
+        if not params.use_neighborhood:
+            raise ValueError("rectangular window_dims requires "
+                             "use_neighborhood")
         return _ndt_field_dense(vmap, spec, params, center)
-    if ((_pack_tier(params, wb) or (_use_pallas(params) and wb >= 4))
-            and params.use_neighborhood):
+    if _pack_tier(params, wb) and params.use_neighborhood:
         return _ndt_field_dense(vmap, spec, params, center)
     lookup = None
     if 3 * spec.dim_bits <= params.dense_lookup_max_bits:
@@ -256,8 +244,6 @@ def _pack_tier(params: NDTParams, wb: int) -> int:
     """Sub-row count of the neighbor-packed table (9 or 3), or 0 = no pack."""
     if wb <= 0 or params.window_bits <= 0 or params.pack_budget_mb <= 0:
         return 0
-    if not params.pack_any_backend and jax.default_backend() != "tpu":
-        return 0
     g = 1 << (3 * wb)
     budget = params.pack_budget_mb * (1 << 20)
     if g * 144 * 4 <= budget:
@@ -265,15 +251,6 @@ def _pack_tier(params: NDTParams, wb: int) -> int:
     if g * 48 * 4 <= budget:
         return 3
     return 0
-
-
-def _use_pallas(params: NDTParams) -> bool:
-    """Whether the terms pass runs the Pallas raster kernel."""
-    if params.terms_impl in ("pallas", "pallas_interpret"):
-        return True
-    if params.terms_impl == "xla":
-        return False
-    return jax.default_backend() == "tpu"
 
 
 def _shift0(x: jax.Array, delta: int, axis: int) -> jax.Array:
@@ -351,13 +328,12 @@ def _pack_neighbor_rows(rows16: jax.Array, dims: Tuple[int, int, int],
 
 def _ndt_field_dense(vmap: VoxelMap, spec: VoxelGridSpec, params: NDTParams,
                      center: Optional[jax.Array]) -> NDTField:
-    """Dense-window field build: scatter -> separable 27-sum -> pack.
+    """Dense-window field build: scatter -> separable 27-sum -> rows.
 
     Replaces the sparse build's per-voxel 27-neighbor gathers (searchsorted
-    or lookup-table probes, 65-650 ms per build on v5e) and the batched eigh
-    (15-80 ms) with dense W^3 array ops: one row scatter, three shift-add
-    moment passes, closed-form floored inverses, and the roll-composed
-    neighbor row packs. Measured ~1-2 ms per build at W=64.
+    or lookup-table probes) and the batched eigh with dense W^3 array ops:
+    one row scatter, three shift-add moment passes, closed-form floored
+    inverses, and (cube windows) the roll-composed neighbor row packs.
 
     The window covers 2^window_bits cells per axis (or the rectangular
     params.window_dims). If the map grid is no bigger, the window IS the
@@ -370,7 +346,7 @@ def _ndt_field_dense(vmap: VoxelMap, spec: VoxelGridSpec, params: NDTParams,
     wb = min(b, params.window_bits)
     if params.window_dims is not None:
         dims = tuple(min(d, n) for d in params.window_dims)
-        tier = 0                       # rect windows are Pallas-only
+        tier = 0                       # rect windows: frozen-bin rows only
     else:
         dims = (1 << wb,) * 3
         tier = _pack_tier(params, wb)
@@ -409,9 +385,8 @@ def _ndt_field_dense(vmap: VoxelMap, spec: VoxelGridSpec, params: NDTParams,
     lidx = (lx * wy + ly) * wz + lz
     lidx = jnp.where(inside, lidx, g)                    # dropped
 
-    # scatter [count, sum(3), outer triu(6), occupied(1)] rows. The triu
-    # components come from slices, not fancy indexing (a (C,2)-index gather
-    # cost 1.5 ms on v5e; slicing is free).
+    # scatter [count, sum(3), outer triu(6), occupied(1)] rows; the triu
+    # components come from slices, not fancy indexing
     so = vmap.sum_outer
     chan = jnp.concatenate([
         vmap.count[:, None], vmap.sum_pts,
@@ -451,23 +426,15 @@ def _ndt_field_dense(vmap: VoxelMap, spec: VoxelGridSpec, params: NDTParams,
         + [valid[:, None].astype(jnp.float32),
            jnp.zeros((g, 6), jnp.float32)], axis=1)
     rows16 = jnp.where(valid[:, None], rows16, 0.0)
-    planes = None
-    if _use_pallas(params) and (params.window_dims is not None or wb >= 4):
-        # Pallas raster-terms path: channel-major planes replace the 9x
-        # neighbor-packed table (roll-pack of (G,144) costs ~300 MB of
-        # traffic per build and the kernel never reads it).  The sparse
-        # per-slot views below exist only for the XLA fallback; their
-        # capacity-sized gather dominated the build (9.2 -> ~2 ms/op
-        # device-side without them), so skip them entirely here.
-        from tpu_slam.kernels.ndt_terms import rows_to_planes
-        planes = rows_to_planes(rows16, dims)
-        # planes-only field: sparse per-slot views are None, NOT dummies —
-        # any consumer that needs them (_ndt_terms, _ndt_correspond) raises
-        # instead of silently matching nothing against zero-rows
+    if params.window_dims is not None:
+        # rows-only field for the frozen-bin pass: sparse per-slot views
+        # are None, NOT dummies — any consumer that needs them
+        # (_ndt_terms, _ndt_correspond) raises instead of silently
+        # matching nothing against zero-rows
         return NDTField(
             keys=keys, means=None, info=None, valid=None, lookup=None,
             packed=None, nbr_rows=None,
-            planes=planes, origin_cell=c0, window_dims=dims)
+            rows=rows16, origin_cell=c0, window_dims=dims)
     nbr_rows = _pack_neighbor_rows(rows16, dims, tier)
 
     # sparse per-slot views for fallback consumers (loop-closure scoring,
@@ -487,7 +454,6 @@ def _ndt_field_dense(vmap: VoxelMap, spec: VoxelGridSpec, params: NDTParams,
         jnp.zeros((vmap.capacity, 6), jnp.float32)], axis=1)
     return NDTField(keys=keys, means=s_means, info=s_info, valid=s_valid,
                     lookup=None, packed=packed, nbr_rows=nbr_rows,
-                    planes=planes,
                     origin_cell=c0, window_dims=dims)
 
 
@@ -546,12 +512,12 @@ def _gather_nbr_rows(pts: jax.Array, field: NDTField, spec: VoxelGridSpec):
 
 
 def _require_sparse_views(field: NDTField, who: str) -> None:
-    """Planes-only fields (Pallas raster path) carry no sparse views."""
+    """Rows-only fields (frozen-bin window path) carry no sparse views."""
     if field.means is None and field.packed is None:
         raise ValueError(
             f"{who} needs the sparse per-slot field views, but this NDTField "
-            "is planes-only (built for the Pallas raster kernel). Build the "
-            "field with terms_impl='xla' or without window_dims for sparse "
+            "is rows-only (a window_dims field for the frozen-bin terms "
+            "pass). Build the field without window_dims for sparse "
             "consumers.")
 
 
@@ -712,94 +678,81 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
     Each iteration costs two correspondence passes (trial + current), both
     fully batched.
 
-    ``far_field``/``far_spec`` (kernel path only): a coarser, wider
+    ``far_field``/``far_spec`` (window path only): a coarser, wider
     companion field (the odometry pyramid's coarse level). Points OUTSIDE
-    the fine window are binned into the far field's raster and their
+    the fine window are binned into the far field's window and their
     coarse-Gaussian terms summed into the same H/b — street scans reach
     75 m while a 160x160x32 fine window covers +-40 m, so without this
     tier 17-21%% of every scan (carrying the long-baseline yaw
-    information) is invisible to the fine objective (r4 verdict weak #4).
-    The coarse cells' wider covariances weight these terms down
-    automatically; cost is one extra (cheap, coarse-dims) raster build per
-    stage and a ~0.1 ms far pass per LM evaluation.
+    information) is invisible to the fine objective. The coarse cells'
+    wider covariances weight these terms down automatically; cost is one
+    extra binning per stage and one far pass per LM evaluation.
     """
     if init_T is None:
         init_T = jnp.eye(4, dtype=source.points.dtype)
     src = source.sanitize()
-    use_kernel = _use_pallas(params) and field.planes is not None
+    use_window = field.rows is not None
     n_src_pts = jnp.maximum(jnp.sum(src.mask.astype(jnp.float32)), 1.0)
 
-    bin_raster = None
-    if use_kernel:
-        # Pallas raster path: bin the scan at each STAGE-entry pose
+    bin_scan = None
+    if use_window:
+        # frozen-bin path: bin the scan at each STAGE-entry pose
         # (kernels.ndt_terms — frozen bins, live gate), then every LM
-        # evaluation of that stage is the dense plane-sweep kernel.  The
-        # coarse GNC stage exists exactly to absorb inits more than a cell
-        # off, so the fine stage re-bins at the coarse result — a ~1-2 ms
-        # build per stage vs ~0.3 ms per pass, cheap against the silent
-        # accuracy loss of running the fine solve on stale frozen
-        # 27-neighborhoods (points that left/entered the window at the
-        # moved pose would otherwise never enter the objective).
-        from tpu_slam.kernels.ndt_terms import (build_terms_raster,
-                                                ndt_terms_raster,
-                                                raster_plane_flags)
+        # evaluation of that stage is one point-major pass.  The coarse
+        # GNC stage exists exactly to absorb inits more than a cell off,
+        # so the fine stage re-bins at the coarse result: a binning per
+        # stage is cheap against the silent accuracy loss of running the
+        # fine solve on stale frozen 27-neighborhoods (points that
+        # left/entered the window at the moved pose would otherwise never
+        # enter the objective).
+        from tpu_slam.kernels.ndt_terms import (bin_points, in_window,
+                                                terms_pass, window_cells)
+        ndt_terms = terms_pass(params.terms_impl)
         if params.isotropic_iterations > 0:
             raise ValueError(
-                "isotropic_iterations > 0 needs the sparse field views; the "
-                "Pallas raster path (window_dims / terms_impl='pallas') "
-                "does not build them — use the coarse pyramid for "
-                "large-init capture instead")
+                "isotropic_iterations > 0 needs the sparse field views; a "
+                "window_dims field does not build them — use the coarse "
+                "pyramid for large-init capture instead")
         dims = field.window_dims
         c0 = (field.origin_cell if field.origin_cell is not None
               else jnp.zeros((3,), jnp.int32))
-        origin_w = (jnp.asarray(spec.origin, jnp.float32)
-                    + c0.astype(jnp.float32) * spec.leaf)
 
-        use_far = far_field is not None and far_field.planes is not None
+        use_far = far_field is not None and far_field.rows is not None
         if use_far:
             far_dims = far_field.window_dims
             far_c0 = (far_field.origin_cell
                       if far_field.origin_cell is not None
                       else jnp.zeros((3,), jnp.int32))
-            far_origin_w = (jnp.asarray(far_spec.origin, jnp.float32)
-                            + far_c0.astype(jnp.float32) * far_spec.leaf)
             far_corr = params.max_corr_dist * (far_spec.leaf / spec.leaf)
 
-        def bin_raster(T0):
-            r, _ = build_terms_raster(src.points, src.mask, T0, origin_w,
-                                      spec.leaf, dims, params.raster_q)
-            r = (r, raster_plane_flags(r, params.raster_q))
+        def bin_scan(T0):
+            fine = bin_points(src.points, src.mask, T0, spec.origin,
+                              spec.leaf, dims, params.raster_q, c0)
             if not use_far:
-                return r, None
+                return fine, None
             # far tier: ONLY the points whose fine-window cell at T0 is
             # out of range (in-window points are already in the fine
             # objective; coarse duplicates would double-count them)
-            pw = se3.apply(T0, src.points)
-            c = jnp.floor((pw - origin_w) / spec.leaf).astype(jnp.int32)
-            inside = jnp.all((c >= 0) & (c < jnp.asarray(dims)), axis=1)
-            rf, _ = build_terms_raster(src.points, src.mask & ~inside, T0,
-                                       far_origin_w, far_spec.leaf,
-                                       far_dims, params.raster_q)
-            return r, (rf, raster_plane_flags(rf, params.raster_q))
+            inside = in_window(window_cells(src.points, T0, spec.origin,
+                                            spec.leaf, dims, c0), dims)
+            far = bin_points(src.points, src.mask & ~inside, T0,
+                             far_spec.origin, far_spec.leaf, far_dims,
+                             params.raster_q, far_c0)
+            return fine, far
 
-    def lm_solve(T0, gamma, max_iters, tol, isotropic=False, raster=None):
-        if use_kernel and not isotropic:
-            (fine_raster, fine_flags), far_raster = raster
+    def lm_solve(T0, gamma, max_iters, tol, isotropic=False, bins=None):
+        if use_window and not isotropic:
+            (cells, keep), far_bins = bins
 
             def terms(T):
-                H, b, cost, cnt = ndt_terms_raster(
-                    fine_raster, field.planes, T, gamma,
-                    params.max_corr_dist,
-                    field.window_dims, params.raster_q,
-                    interpret=params.terms_impl == "pallas_interpret",
-                    plane_flags=fine_flags)
-                if far_raster is not None:
-                    rf, ff = far_raster
-                    Hf, bf, costf, cntf = ndt_terms_raster(
-                        rf, far_field.planes, T, gamma, far_corr,
-                        far_field.window_dims, params.raster_q,
-                        interpret=params.terms_impl == "pallas_interpret",
-                        plane_flags=ff)
+                H, b, cost, cnt = ndt_terms(
+                    src.points, cells, keep, field.rows, T, gamma,
+                    params.max_corr_dist, field.window_dims)
+                if far_bins is not None:
+                    Hf, bf, costf, cntf = ndt_terms(
+                        src.points, far_bins[0], far_bins[1],
+                        far_field.rows, T, gamma, far_corr,
+                        far_field.window_dims)
                     H, b = H + Hf, b + bf
                     cost, cnt = cost + costf, cnt + cntf
                 return H, b, cost, cnt / n_src_pts
@@ -853,7 +806,7 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
     # the widened basin pulls in inits beyond the fine objective's comb of
     # local minima (discrete scan patterns alias in yaw) — then the fine
     # stage polishes at the nominal temperature.
-    def staged_kernel_solve(T0, gamma, n_iters, iters_per_stage, tol):
+    def staged_window_solve(T0, gamma, n_iters, iters_per_stage, tol):
         """Re-binned LM: bin at the CURRENT pose every few iterations.
 
         Frozen bins cannot express rotation (see NDTParams.rebin_iters);
@@ -868,9 +821,8 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
 
         def body(c):
             s, T, it, frac, cost, dx = c
-            raster = bin_raster(T)
             T2, _, cost2, _, _, frac2, it2, dx2 = lm_solve(
-                T, gamma, iters_per_stage, tol, raster=raster)
+                T, gamma, iters_per_stage, tol, bins=bin_scan(T))
             return (s + 1, T2, it + it2, frac2, cost2, dx2)
 
         init = (jnp.int32(0), T0, jnp.int32(0), jnp.float32(0.0),
@@ -880,7 +832,7 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
 
     gamma_f = jnp.float32(params.score_temperature)
     T_c, it_c = init_T, jnp.int32(0)
-    if use_kernel and params.yaw_candidates > 1:
+    if use_window and params.yaw_candidates > 1:
         gamma_y = gamma_f * max(params.coarse_temperature_scale, 1.0)
         offs = jnp.linspace(-params.yaw_span, params.yaw_span,
                             params.yaw_candidates)
@@ -892,11 +844,10 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
             Rz = Rz.at[0, 0].set(c).at[0, 1].set(-s)
             Rz = Rz.at[1, 0].set(s).at[1, 1].set(c)
             Ty = T_c @ Rz                   # rotate heading, keep position
-            from tpu_slam.kernels.ndt_terms import ndt_terms_raster as _ntr
-            _, _, cost, _ = _ntr(
-                bin_raster(Ty)[0][0], field.planes, Ty, gamma_y,
-                params.max_corr_dist, field.window_dims, params.raster_q,
-                interpret=params.terms_impl == "pallas_interpret")
+            cells, keep = bin_scan(Ty)[0]
+            _, _, cost, _ = ndt_terms(src.points, cells, keep, field.rows,
+                                      Ty, gamma_y, params.max_corr_dist,
+                                      field.window_dims)
             return cost, Ty
 
         costs, Tys = [], []
@@ -915,10 +866,10 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
         it_c = it_c + it0
     if params.coarse_iterations > 0 and params.coarse_temperature_scale > 1.0:
         gamma_c = gamma_f * params.coarse_temperature_scale
-        if use_kernel:
+        if use_window:
             # coarse absorbs the large (often rotational) init error:
-            # re-bin every iteration — the coarse raster build is cheap
-            T_c, it1, _, _, _ = staged_kernel_solve(
+            # re-bin every iteration — the coarse binning is cheap
+            T_c, it1, _, _, _ = staged_window_solve(
                 T_c, gamma_c, params.coarse_iterations, 1,
                 10.0 * params.tolerance)
         else:
@@ -927,8 +878,8 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
                 10.0 * params.tolerance)
         it_c = it_c + it1
 
-    if use_kernel:
-        T, iters, frac, cost, dx = staged_kernel_solve(
+    if use_window:
+        T, iters, frac, cost, dx = staged_window_solve(
             T_c, gamma_f, params.max_iterations,
             max(1, params.rebin_iters), params.tolerance)
     else:

@@ -5,7 +5,7 @@ VLP-16 scans of the SAME surface from poses a meter apart sample different
 ring arcs, so point-to-POINT nearest-neighbor residuals are dominated by the
 ring spacing (~0.3-0.9 m on far walls) even at perfect alignment — measured
 on the r4 config-4 bench as every true lap-revisit pair scoring mse
-0.15-0.25 against a 0.15 gate (r5 diagnosis, benchmarks/diag_config4.json).
+0.15-0.25 against a 0.15 gate (benchmarks/diag_config4.py).
 Point-to-PLANE residuals collapse that mismatch: distance along the surface
 normal is noise + flatness only (~cm). The reference's CPU graph backend
 verified candidates with PCL's plane-aware matchers for the same reason
@@ -38,8 +38,8 @@ def estimate_normals(points: jax.Array, mask: jax.Array,
     (consumers weight them out via the correspondence mask).
     """
     pts = jnp.where(mask[:, None], points, PAD_COORD)
-    # ||a-b||^2 via the matmul form: the (P, P) Gram product runs on the
-    # MXU and avoids materializing a (P, P, 3) difference tensor
+    # ||a-b||^2 via the matmul form: the (P, P) Gram product avoids
+    # materializing a (P, P, 3) difference tensor
     sq = jnp.sum(pts * pts, axis=1)
     d2 = sq[:, None] + sq[None, :] - 2.0 * (pts @ pts.T)
     _, idx = jax.lax.top_k(-d2, k)                  # (P, k) nearest (incl self)

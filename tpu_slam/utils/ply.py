@@ -3,7 +3,7 @@
 Artifact export for human verification steps — the reference closed its
 calibration loop with a PCL visualizer rendering the two half-clouds
 red/green for operator acceptance (m3d_calibration_twiddle.cpp:384-424);
-headless TPU boxes export the same check as a .ply any viewer opens.
+headless machines export the same check as a .ply any viewer opens.
 """
 
 from __future__ import annotations
